@@ -5,18 +5,32 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
+With ``--profile`` it also runs phase 4b three more times warm and once
+under `torch.profiler`, and prints the rotation path's host wall, device
+busy time, idle share and heaviest kernels as [profile] lines.
+
 Phases, each printing lines tagged [device] / [build] / [check] / [main] /
-[time]:
+[rotate] / [time]:
 
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: the CUDA kernels from csgn_tpu_torch/csrc, with the seconds taken;
   3. each kernel against its plain torch version on the card, bit-exact, at
-     small and ragged shapes and at the main path's full size;
+     small and ragged shapes and at the main path's full size: K1-K4, the
+     Beneš kernels K8/K9/K12 at n in {20, 100, 1247} and up to 2^20 chunks,
+     and K1-K3 on batched [B, W, C] operands;
   4. the main path through the public API at Context(1247, 16): key, two
      4096-bit encrypt batches, decrypt_batch / decrypt, the fused
      mul_and_decrypt over the 16.7 M-chunk product, ``*`` and ``+``; every
-     kernel's launch count must rise during this phase;
-  5. timings of each kernel and its plain version at the main path's shapes
+     kernel of this path must be launched during it;
+  4b. the key-rotation path at Context(1247, 16): phase 4's product permuted,
+     decrypted under the permuted key, permuted back; then a fleet of 64
+     128-chunk ciphertexts, multiplied into [64, 40, 16384], decrypted,
+     re-keyed under 64 distinct permutations and decrypted under each
+     rotated key; K12, which `permute_and_decrypt` does not use (it stays
+     staged, as in the JAX package), is called through its ops-level
+     function on the rotated product; every kernel of this path must be
+     launched during it;
+  5. timings of each kernel and its plain version at the paths' shapes
      (CUDA events, warm-up, median of distinct inputs; nothing is asserted).
 
 Then one JSON line with the kernels, and last the device JSON line.  Any
@@ -26,6 +40,7 @@ a CUDA device.  All data is made from fixed seeds.
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
@@ -35,15 +50,18 @@ import time
 import numpy as np
 import torch
 
-from csgn_tpu_torch import Ciphertext, Context, SecretKey
+from csgn_tpu_torch import Ciphertext, CiphertextBatch, Context, Permutation, SecretKey
 from csgn_tpu_torch.layout import words_to_numpy
-from csgn_tpu_torch.ops import _build, core, encrypt_kernels, kernels
+from csgn_tpu_torch.ops import _build, benes_kernels, core, encrypt_kernels, kernels
+from csgn_tpu_torch.ops import permute_benes as pb
 
 SEED = 20261016
 M32 = 0xFFFFFFFF
 MAIN_T = 4096             # bits per encrypt batch on the main path
 DEC_CHUNKS = MAIN_T * MAIN_T  # K3 at the product's size: 2^24 chunks, 2.68 GB at W = 40
 ENC_BATCH = 1 << 22       # K4 at a large batch
+PERM_CHUNKS = 1 << 20     # K8/K12 at the JAX bench's permutation size (bench.py:344)
+FLEET, FLEET_T = 64, 128  # rotation fleet: 64 elements of 128 chunks, squared
 REPS = 5
 
 # wrapper -> (source, TPU kernel it replaces)
@@ -54,7 +72,18 @@ KERNELS = {
     "chunk_matches": ("csgn_tpu_torch/csrc/decrypt.cu", "csgn_tpu/ops/kernels.py:631"),
     "encrypt_bits_counter": ("csgn_tpu_torch/csrc/encrypt.cu",
                              "csgn_tpu/ops/encrypt_pallas.py:250"),
+    "apply_benes": ("csgn_tpu_torch/csrc/benes.cu", "csgn_tpu/ops/permute_benes.py:533"),
+    "apply_benes_batch": ("csgn_tpu_torch/csrc/benes.cu", "csgn_tpu/ops/permute_benes.py:399"),
+    "apply_benes_decrypt": ("csgn_tpu_torch/csrc/benes.cu",
+                            "csgn_tpu/ops/permute_benes.py:307"),
 }
+# The kernels each path must launch (LAUNCHES keys; "_batched" = the same
+# kernel on [B, W, C] operands, reported in its kernel's row).
+MAIN_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "chunk_matches",
+             "encrypt_bits_counter")
+ROTATION_PATH = ("apply_benes", "apply_benes_batch", "apply_benes_decrypt", "decrypt_parity",
+                 "mul_chunks_batched", "mul_decrypt_batched", "decrypt_parity_batched",
+                 "encrypt_bits_counter")
 
 
 class SmokeFailure(RuntimeError):
@@ -86,8 +115,15 @@ def rand_words(ctx: Context, chunks: int, gen: torch.Generator, dev) -> torch.Te
 
 
 def force(words: torch.Tensor, cols, mask: torch.Tensor) -> torch.Tensor:
-    words[:, cols] |= mask[:, None]
+    words[..., cols] |= mask[:, None]
     return words
+
+
+def canon_words(ctx: Context, shape, gen: torch.Generator, dev) -> torch.Tensor:
+    """Random canonical words of `shape` [..., W, chunks], made on the card."""
+    x = torch.randint(0, 1 << 32, shape, dtype=torch.int64, device=dev, generator=gen)
+    valid = torch.from_numpy(ctx.valid_mask.view(np.int32)).to(dev)
+    return x.to(torch.int32) & valid[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -145,6 +181,86 @@ def check_kernels(ctx, sk, gen, dev, errs: dict) -> None:
         del got, bits
 
 
+def check_batched(ctx, sk, gen, dev, errs: dict) -> None:
+    """K1-K3 on [B, W, C] operands against their plain versions."""
+    m = sk.mask_words
+    w = ctx.words32
+    for batch, t1, t2 in [(1, 3, 5), (7, 13, 7), (FLEET, FLEET_T, FLEET_T)]:
+        a = force(canon_words(ctx, (batch, w, t1), gen, dev), slice(0, t1, 2), m)
+        b = force(canon_words(ctx, (batch, w, t2), gen, dev), slice(0, t2, 3), m)
+        a[1::2] = canon_words(ctx, (batch // 2, w, t1), gen, dev)  # fewer matches there
+        want = kernels.mul_chunks_plain(a, b)
+        e1 = max_abs_err(kernels.mul_chunks(a, b), want)
+        prod, count = kernels.mul_decrypt(a, b, m, return_count=True)
+        _, parity = kernels.mul_decrypt(a, b, m)
+        _, want_count = kernels.mul_decrypt_plain(a, b, m, return_count=True)
+        e2 = max(max_abs_err(prod, want), int((count - want_count).abs().max()),
+                 int((parity - (want_count & 1)).abs().max()))
+        e3 = int((kernels.decrypt_parity(want, m)
+                  - kernels.decrypt_parity_plain(want, m)).abs().max())
+        e4 = max_abs_err(kernels.chunk_matches(want, m), kernels.chunk_matches_plain(want, m))
+        for name, e in [("mul_chunks", e1), ("mul_decrypt", e2), ("decrypt_parity", e3),
+                        ("chunk_matches", e4)]:
+            errs[name] = max(errs[name], e)
+        require(e1 == e2 == e3 == e4 == 0, f"batched K1-K3 disagree with plain at "
+                f"{batch}x({t1}x{t2})")
+        require(int(count[0]) > 0, f"no forced matches counted at {batch}x({t1}x{t2})")
+        print(f"[check] batched mul_chunks + mul_decrypt + decrypt_parity + chunk_matches "
+              f"{batch}x({t1}x{t2}): bit-equal, counts {count[:4].tolist()}...")
+        del a, b, want, prod
+
+
+BENES_NS = (20, 100, 1247)
+BENES_CHUNKS = (1, 129, 1025, PERM_CHUNKS)
+
+
+def check_benes(gen, pgen, dev, errs: dict) -> None:
+    """K8 / K12 at every (n, C), K9 at every (n, k, C), against their plain
+    versions; K12 with matches forced into every 5th column."""
+    saw_parity_one = False
+    for n in BENES_NS:
+        ctx = Context(n, min(16, n // 2))
+        sk = SecretKey(ctx, torch.randperm(n, generator=pgen)[:ctx.d].numpy(), device=dev)
+        p = Permutation.random(n, pgen)
+        plan = p.benes_plan()
+        key = sk.apply_permutation(p).mask_words   # the OUTPUT's key
+        # The key's mask permuted back through p^-1 matches `key` after p.
+        pre = core.permute_chunks(key[:, None], torch.tensor(p.inverse().perm), n)
+        for chunks in BENES_CHUNKS:
+            x = canon_words(ctx, (ctx.words32, chunks), gen, dev)
+            x[:, 0:chunks:5] |= pre
+            e8 = max_abs_err(benes_kernels.apply_benes(x, plan),
+                             benes_kernels.apply_benes_plain(x, plan))
+            out, count = benes_kernels.apply_benes_decrypt(x, plan, key, return_count=True)
+            _, parity = benes_kernels.apply_benes_decrypt(x, plan, key)
+            want_out, want_count = benes_kernels.apply_benes_decrypt_plain(
+                x, plan, key, return_count=True)
+            e12 = max(max_abs_err(out, want_out), abs(int(count) - int(want_count)),
+                      abs(int(parity) - (int(want_count) & 1)))
+            errs["apply_benes"] = max(errs["apply_benes"], e8)
+            errs["apply_benes_decrypt"] = max(errs["apply_benes_decrypt"], e12)
+            require(e8 == 0 and e12 == 0, f"K8/K12 disagree with plain at n={n} C={chunks}")
+            require(int(count) >= len(range(0, chunks, 5)), f"K12 missed forced matches "
+                    f"at n={n} C={chunks}")
+            saw_parity_one |= int(parity) == 1
+            print(f"[check] apply_benes + apply_benes_decrypt n={n} C={chunks}: bit-equal, "
+                  f"count {int(count)} parity {int(parity)}")
+            del x, out, want_out
+        for k in (1, 3, FLEET):
+            perms = [Permutation.random(n, pgen) for _ in range(k)]
+            stacked = pb.stack_plans([q.benes_plan() for q in perms])
+            for chunks in (1, 129, 1025) + ((1 << 14,) if k == FLEET else ()):
+                x = canon_words(ctx, (k, ctx.words32, chunks), gen, dev)
+                e9 = max_abs_err(benes_kernels.apply_benes_batch(x, stacked),
+                                 benes_kernels.apply_benes_batch_plain(x, stacked))
+                errs["apply_benes_batch"] = max(errs["apply_benes_batch"], e9)
+                require(e9 == 0, f"K9 disagrees with plain at n={n} k={k} C={chunks}")
+                del x
+            print(f"[check] apply_benes_batch n={n} k={k}: bit-equal at C in "
+                  f"{(1, 129, 1025) + ((1 << 14,) if k == FLEET else ())}")
+    require(saw_parity_one, "no K12 case had parity 1")
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path at full size, through the public API
 # ---------------------------------------------------------------------------
@@ -157,7 +273,7 @@ def odd_bits(rng: np.random.Generator, n: int) -> np.ndarray:
     return bits
 
 
-def main_path(ctx, indices, rng, dev) -> dict:
+def main_path(ctx, indices, rng, dev) -> tuple[dict, Ciphertext]:
     bits1, bits2 = odd_bits(rng, MAIN_T), odd_bits(rng, MAIN_T)
     xor1, xor2 = int(bits1.sum() % 2), int(bits2.sum() % 2)
     for name in kernels.LAUNCHES:
@@ -190,7 +306,7 @@ def main_path(ctx, indices, rng, dev) -> dict:
     require(tuple(prod.wt.shape) == (ctx.words32, MAIN_T * MAIN_T), "product shape")
     require(max_abs_err(prod.wt, core.mul_chunks(c1.wt, c2.wt)) == 0,
             "product != plain cross-product on the card")
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [k for k in MAIN_PATH if launches[k] == 0]
     require(not idle, f"main path never launched: {idle}")
     print(f"[main] Context({ctx.n},{ctx.d}) W={ctx.words32}: 2 x {MAIN_T}-bit encrypt, "
           f"product {MAIN_T * MAIN_T} chunks ({prod.nbytes / 1e9:.2f} GB); "
@@ -206,7 +322,134 @@ def main_path(ctx, indices, rng, dev) -> dict:
     require(np.array_equal(words_to_numpy(c1.wt[:, :64]), words_to_numpy(cpu_c1)),
             "card encrypt != CPU encrypt on the first 64 columns")
     print("[main] first 64 encrypted columns equal the CPU path's")
+    return launches, prod
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the key-rotation path at full size, through the public API
+# ---------------------------------------------------------------------------
+
+
+def rotation_path(ctx, indices, prod: Ciphertext, p: Permutation, perms: list, rng,
+                  dev) -> dict:
+    """Phase 4's 2^24-chunk product rotated by `p` and back, then a fleet of
+    FLEET ciphertexts grown by `*` and rotated under `perms` (one each)."""
+    fleet_bits = rng.integers(0, 2, (FLEET, FLEET_T)).astype(np.int32)
+    fleet_bits[0, 0] ^= int(fleet_bits[0].sum() % 2 == 0)   # element 0 decrypts to 1,
+    fleet_bits[1, 0] ^= int(fleet_bits[1].sum() % 2 == 1)   # element 1 to 0
+    want = fleet_bits.sum(axis=1) % 2
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    # Single: rotate the product, read it under the rotated key, rotate back.
+    sk = SecretKey(ctx, indices, device=dev)
+    psk = sk.apply_permutation(p)
+    rot = prod.apply_permutation(p)
+    d_rot = int(psk.decrypt(rot))
+    head_ok = torch.equal(rot.wt[:, :4096], core.permute_chunks(
+        prod.wt[:, :4096], torch.tensor(p.perm), ctx.n))
+    staged, d_staged = sk.permute_and_decrypt(prod, p)
+    staged_ok = torch.equal(staged.wt, rot.wt)
+    del staged
+    # K12 has no API-level caller (permute_and_decrypt is staged, as in the
+    # JAX package); its ops-level function is the entry point.
+    fused, d_fused = benes_kernels.apply_benes_decrypt(prod.wt, p.benes_plan(), psk.mask_words)
+    fused_ok, d_fused = torch.equal(fused, rot.wt), int(d_fused)
+    del fused
+    back_ok = torch.equal(rot.apply_permutation(p.inverse()).wt, prod.wt)
+    del rot
+
+    # Fleet: encrypt, grow with a batched `*`, decrypt, rotate, decrypt.
+    batch = CiphertextBatch.stack([
+        Ciphertext(sk.encrypt_batch(fleet_bits[i], SEED + 100 + i), ctx) for i in range(FLEET)
+    ])
+    grown = batch * batch
+    dec = sk.decrypt_batch(grown).cpu().numpy()
+    fused_prod, fused_bits = sk.mul_and_decrypt_batch(batch, batch)
+    fused_prod_ok = torch.equal(fused_prod.wt, grown.wt)
+    del fused_prod
+    rotated = grown.apply_permutations(perms)
+    dec_rot = np.array([int(sk.apply_permutation(perms[i]).decrypt(rotated[i]))
+                        for i in range(FLEET)])
+    dec_shared = psk.decrypt_batch(grown.apply_permutation(p)).cpu().numpy()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    require(d_rot == 1, f"permuted product decrypts to {d_rot} under the permuted key, not 1")
+    require(head_ok, "permuted product != gather oracle on its first 4096 chunks")
+    require(staged_ok and fused_ok, "permute_and_decrypt / K12 words != apply_permutation's")
+    require(d_staged == d_fused == 1, f"permute_and_decrypt / K12 parity {d_staged}/{d_fused} "
+            "!= 1")
+    require(back_ok, "p then p.inverse() did not give the product back")
+    require(tuple(grown.wt.shape) == (FLEET, ctx.words32, FLEET_T * FLEET_T), "fleet shape")
+    require(np.array_equal(dec, want), "fleet decrypt_batch != expected bits")
+    require(fused_prod_ok and np.array_equal(fused_bits.cpu().numpy(), want),
+            "mul_and_decrypt_batch != batch * batch and expected bits")
+    require(np.array_equal(dec_rot, want), "fleet decrypts under the 64 rotated keys != bits")
+    require(np.array_equal(dec_shared, want), "shared-permutation fleet decrypt != bits")
+    for i in (0, FLEET - 1):
+        require(torch.equal(rotated.wt[i], core.permute_chunks(
+            grown.wt[i], torch.tensor(perms[i].perm), ctx.n)),
+            f"fleet element {i} != gather oracle under its permutation")
+    idle = [k for k in ROTATION_PATH if launches[k] == 0]
+    require(not idle, f"rotation path never launched: {idle}")
+    print(f"[rotate] Context({ctx.n},{ctx.d}): product of {prod.chunks} chunks rotated, "
+          f"decrypt under the rotated key {d_rot}, permute_and_decrypt {d_staged}, "
+          f"K12 {d_fused}, rotated back bit-equal; fleet {FLEET} x {FLEET_T} chunks -> "
+          f"{tuple(grown.wt.shape)} ({grown.nbytes / 1e6:.0f} MB), bits {want.tolist()[:8]}... "
+          f"({int(want.sum())} ones) from decrypt_batch, mul_and_decrypt_batch, "
+          f"{FLEET} rotated keys and one shared rotation; {seconds:.3f} s host wall")
+    print(f"[rotate] launches {json.dumps({k: launches[k] for k in ROTATION_PATH})}; "
+          f"peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
     return launches
+
+
+
+def profile_rotation(ctx, indices, prod: Ciphertext, p: Permutation, perms: list, dev) -> None:
+    """Phase 4b three times warm (host wall), then once under torch.profiler:
+    device busy time (the union of kernel intervals), idle share of the host
+    wall, and the heaviest kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        rotation_path(ctx, indices, prod, p, perms, np.random.default_rng(1), dev)
+
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, end = 0.0, None
+    for s, e in sorted((k.time_range.start, k.time_range.end) for k in kern):
+        if end is None or s > end:
+            busy_us += e - s
+            end = e
+        elif e > end:
+            busy_us += e - end
+            end = e
+    by_name: dict = {}
+    for k in kern:
+        n_us = by_name.setdefault(k.name[:60], [0, 0.0])
+        n_us[0] += 1
+        n_us[1] += k.time_range.end - k.time_range.start
+    print(f"[profile] rotation path host wall, 3 warm runs: "
+          f"{[round(w * 1e3, 3) for w in walls]} ms")
+    print("[profile] " + json.dumps({
+        "wall_ms_profiled": wall_ms, "device_busy_ms": busy_us / 1e3,
+        "idle_share_of_wall": 1 - busy_us / 1e3 / wall_ms, "kernel_launches": len(kern)}))
+    for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:14]:
+        print(f"[profile] {us / 1e3:9.3f} ms  x{n:4d}  {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -234,14 +477,19 @@ def time_pair(kernel_fn, plain_fn, inputs) -> tuple[float, float]:
     return statistics.median(times["kernel"]), statistics.median(times["plain"])
 
 
-def timings(ctx, sk, gen, dev, card: str) -> dict:
+def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked) -> dict:
     m = sk.mask_words
     w = ctx.words32
     out = {}
 
-    def report(name, shape, nbytes, ms, plain_ms, extra=""):
-        out[name] = {"shape": shape, "ms": ms, "plain_ms": plain_ms}
-        print(f"[time] {name} {shape}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
+    def report(name, shape, nbytes, ms, plain_ms, extra="", batched=False):
+        entry = {"shape": shape, "ms": ms, "plain_ms": plain_ms}
+        if batched:
+            out[name]["batched"] = entry
+        else:
+            out[name] = entry
+        tag = f"{name} (batched)" if batched else name
+        print(f"[time] {tag} {shape}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
               f"plain {plain_ms:.4f} ms ({nbytes / plain_ms / 1e6:.1f} GB/s){extra}; {card}")
 
     # Distinct inputs are distinct real ciphertexts: a fresh chunk of bit 1
@@ -280,10 +528,64 @@ def timings(ctx, sk, gen, dev, card: str) -> dict:
     ms, pms = time_pair(lambda x: kernels.chunk_matches(x, m),
                         lambda x: kernels.chunk_matches_plain(x, m), fresh)
     report("chunk_matches", f"{w}x{ENC_BATCH}", w * ENC_BATCH * 4, ms, pms)
+    del fresh, bits, args
+
+    # Batched K1-K3 at the fleet's shapes: 64 x (128 x 128), real ciphertexts.
+    def fleet(seed):
+        bits = torch.randint(0, 2, (FLEET * FLEET_T,), dtype=torch.int32, device=dev,
+                             generator=gen)
+        words = sk.encrypt_batch(bits, seed)            # [W, FLEET * FLEET_T]
+        return words.reshape(w, FLEET, FLEET_T).permute(1, 0, 2).contiguous()
+
+    fab = [(fleet(SEED + 50 + 2 * k), fleet(SEED + 51 + 2 * k)) for k in range(REPS)]
+    fshape = f"{FLEET}x({FLEET_T}x{FLEET_T})"
+    fbytes = FLEET * w * FLEET_T * FLEET_T * 4
+    ms, pms = time_pair(kernels.mul_chunks, kernels.mul_chunks_plain, fab)
+    report("mul_chunks", fshape, fbytes, ms, pms, batched=True)
+    ms, pms = time_pair(lambda x, y: kernels.mul_decrypt(x, y, m),
+                        lambda x, y: kernels.mul_decrypt_plain(x, y, m), fab)
+    report("mul_decrypt", fshape, fbytes, ms, pms, batched=True)
+    fprods = [(kernels.mul_chunks(x, y),) for x, y in fab]
+    del fab
+    ms, pms = time_pair(lambda x: kernels.decrypt_parity(x, m),
+                        lambda x: kernels.decrypt_parity_plain(x, m), fprods)
+    report("decrypt_parity", f"{FLEET}x{w}x{FLEET_T * FLEET_T}", fbytes, ms, pms,
+           " (bytes counted over all W rows)", batched=True)
+    del fprods
+
+    # Beneš kernels at n = 1247: K8 / K12 over 2^20 chunks, K9 over 64 x 2^14.
+    # Bytes are the payload read plus written (K12: read only is the floor).
+    plan = p.benes_plan()
+    key = sk.apply_permutation(p).mask_words
+    xs = [(canon_words(ctx, (w, PERM_CHUNKS), gen, dev),) for _ in range(REPS)]
+    pbytes = 2 * w * PERM_CHUNKS * 4
+    ms, pms = time_pair(lambda x: benes_kernels.apply_benes(x, plan),
+                        lambda x: benes_kernels.apply_benes_plain(x, plan), xs)
+    report("apply_benes", f"{w}x{PERM_CHUNKS}", pbytes, ms, pms,
+           f", {PERM_CHUNKS / ms / 1e3:.1f} M chunks/s")
+    ms, pms = time_pair(lambda x: benes_kernels.apply_benes_decrypt(x, plan, key),
+                        lambda x: benes_kernels.apply_benes_decrypt_plain(x, plan, key), xs)
+    fused_ms, staged_ms = time_pair(
+        lambda x: benes_kernels.apply_benes_decrypt(x, plan, key),
+        lambda x: kernels.decrypt_parity(benes_kernels.apply_benes(x, plan), key), xs)
+    report("apply_benes_decrypt", f"{w}x{PERM_CHUNKS}", pbytes, ms, pms,
+           f"; staged K8 + K3 {staged_ms:.4f} ms against fused {fused_ms:.4f} ms in turns")
+    out["apply_benes_decrypt"]["staged_ms"] = staged_ms
+    del xs
+    kc = 1 << 14
+    xb = [(canon_words(ctx, (stacked.k, w, kc), gen, dev),) for _ in range(REPS)]
+    ms, pms = time_pair(lambda x: benes_kernels.apply_benes_batch(x, stacked),
+                        lambda x: benes_kernels.apply_benes_batch_plain(x, stacked), xb)
+    report("apply_benes_batch", f"{stacked.k}x{w}x{kc}", 2 * stacked.k * w * kc * 4, ms, pms,
+           f", {stacked.k * kc / ms / 1e3:.1f} M chunks/s")
     return out
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also profile phase 4b (the key-rotation path)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -311,27 +613,49 @@ def main() -> int:
     sk = SecretKey(ctx, indices, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
+    pgen = torch.Generator().manual_seed(SEED)  # permutations are drawn on the host
+
     # Phase 3: kernels vs plain.
     errs = dict.fromkeys(KERNELS, 0)
     check_kernels(ctx, sk, gen, dev, errs)
+    check_batched(ctx, sk, gen, dev, errs)
+    check_benes(gen, pgen, dev, errs)
     torch.cuda.synchronize()
 
     # Phase 4: the main path.
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    launches = main_path(ctx, indices, rng, dev)
+    main_launches, prod = main_path(ctx, indices, rng, dev)
+    torch.cuda.empty_cache()
+
+    # Phase 4b: the key-rotation path.  Host routing of the plans is set-up.
+    p = Permutation.random(ctx, pgen)
+    perms = [Permutation.random(ctx, pgen) for _ in range(FLEET)]
+    t0 = time.perf_counter()
+    stacked = pb.stack_plans([q.benes_plan() for q in perms])
+    p.benes_plan()
+    print(f"[rotate] {FLEET + 1} Beneš plans routed on the host in "
+          f"{time.perf_counter() - t0:.2f} s (cached on each Permutation)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    rot_launches = rotation_path(ctx, indices, prod, p, perms, rng, dev)
+    if args.profile:
+        profile_rotation(ctx, indices, prod, p, perms, dev)
+    del prod
     torch.cuda.empty_cache()
 
     # Phase 5: timings.
-    times = timings(ctx, sk, gen, dev, smi)
+    times = timings(ctx, sk, gen, dev, smi, p, stacked)
     torch.cuda.synchronize()
 
-    rows = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
-         "shape": times[name]["shape"]}
-        for name, (src, rep) in KERNELS.items()
-    ]
+    rows = []
+    for name, (src, rep) in KERNELS.items():
+        by_path = {path: launches.get(name, 0) + launches.get(name + "_batched", 0)
+                   for path, launches in (("main", main_launches), ("rotation", rot_launches))}
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": errs[name], **times[name],
+        })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

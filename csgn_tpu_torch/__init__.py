@@ -11,11 +11,16 @@ the CPU run the plain torch versions of the kernels; tensors on a CUDA device
 run the kernels in ``csrc/``, built by nvcc at first use.
 """
 
+from csgn_tpu_torch.batch import CiphertextBatch
 from csgn_tpu_torch.ciphertext import Ciphertext
 from csgn_tpu_torch.context import Context
+from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.plaintext import Plaintext
 from csgn_tpu_torch.secret_key import SecretKey
 
 __version__ = "0.1.0"
 
-__all__ = ["Context", "Plaintext", "SecretKey", "Ciphertext", "__version__"]
+__all__ = [
+    "Context", "Plaintext", "SecretKey", "Ciphertext", "CiphertextBatch", "Permutation",
+    "__version__",
+]

@@ -11,14 +11,18 @@ from __future__ import annotations
 
 import numpy as np
 
+from csgn_tpu_torch.batch import CiphertextBatch
 from csgn_tpu_torch.ciphertext import Ciphertext
 from csgn_tpu_torch.context import Context
 from csgn_tpu_torch.layout import words_from_numpy, words_to_numpy
+from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.secret_key import SecretKey
 
 __all__ = [
     "secret_key_from_numpy",
     "ciphertext_from_numpy",
+    "ciphertext_batch_from_numpy",
+    "permutation_from_numpy",
     "words_from_numpy",
     "words_to_numpy",
 ]
@@ -32,3 +36,14 @@ def secret_key_from_numpy(ctx: Context, indices: np.ndarray, device="cpu") -> Se
 def ciphertext_from_numpy(words_u32_wc: np.ndarray, ctx: Context, device="cpu") -> Ciphertext:
     """The port's ciphertext from word-major uint32 ``[W, C]`` words."""
     return Ciphertext(words_from_numpy(words_u32_wc, device), ctx)
+
+
+def ciphertext_batch_from_numpy(words_u32_bwc: np.ndarray, ctx: Context,
+                                device="cpu") -> CiphertextBatch:
+    """The port's batch from uint32 ``[B, W, C]`` words (``np.asarray(cb.wt)``)."""
+    return CiphertextBatch(words_from_numpy(words_u32_bwc, device), ctx)
+
+
+def permutation_from_numpy(perm: np.ndarray) -> Permutation:
+    """The port's permutation of the same array (e.g. ``p.perm``)."""
+    return Permutation(np.asarray(perm))

@@ -9,6 +9,13 @@
 //   count    = sum_c match[c]          (kPerChunk = false; parity = count & 1)
 //   out[c]   = match[c]                (kPerChunk = true)
 //
+// Batched words [B, W, C] (SecretKey.decrypt_batch of a CiphertextBatch; the
+// JAX package vmaps the same computation) take element e from blockIdx.y,
+// with 64-bit element strides, and write count[e] or out[e, c]; a 2-D call
+// is B = 1.  The host launches one grid per 65535 elements; only the
+// `kBatched` instantiation applies the element offset, so a 2-D call runs
+// the 2-D kernel's exact code (as in mul.cu).
+//
 // Bound on the H100: reading the words.  Design:
 //   * one thread per kVec consecutive chunk columns, looping over the rows,
 //     so each row is read coalesced across the warp (kVec = 4: one 16-byte
@@ -25,11 +32,14 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int64_t kMaxGridY = 65535;
 
-template <bool kPerChunk, int kVec>
+template <bool kPerChunk, int kVec, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 decrypt_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ mask,
                void* __restrict__ out, int64_t w, int64_t c) {
+  const int64_t e = kBatched ? blockIdx.y : 0;
+  if (kBatched) x += e * w * c;
   extern __shared__ uint32_t sm_mask[];
   for (int64_t r = threadIdx.x; r < w; r += blockDim.x) sm_mask[r] = mask[r];
   __syncthreads();
@@ -58,7 +68,7 @@ decrypt_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ mask
   }
   if (kPerChunk) {
     if (active) {
-      int32_t* o = static_cast<int32_t*>(out) + col0;
+      int32_t* o = static_cast<int32_t*>(out) + e * c + col0;
 #pragma unroll
       for (int k = 0; k < kVec; ++k) o[k] = ok[k] ? 1 : 0;
     }
@@ -70,35 +80,48 @@ decrypt_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ mask
     }
     n = __reduce_add_sync(0xffffffffu, n);
     if ((threadIdx.x & 31) == 0 && n)
-      atomicAdd(static_cast<unsigned long long*>(out), static_cast<unsigned long long>(n));
+      atomicAdd(static_cast<unsigned long long*>(out) + e, static_cast<unsigned long long>(n));
   }
 }
 
 template <bool kPerChunk, int kVec>
-cudaError_t launch(const void* x, const void* mask, void* out, int64_t w, int64_t c,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* mask, void* out, int64_t batch, int64_t w,
+                   int64_t c, cudaStream_t stream) {
   const int64_t threads = (c + kVec - 1) / kVec;
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const size_t smem = static_cast<size_t>(w) * sizeof(uint32_t);
-  decrypt_kernel<kPerChunk, kVec><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(mask), out, w, c);
-  return cudaGetLastError();
+  for (int64_t e0 = 0; e0 < batch; e0 += kMaxGridY) {
+    const int64_t n = batch - e0 < kMaxGridY ? batch - e0 : kMaxGridY;
+    void* oe = kPerChunk ? static_cast<void*>(static_cast<int32_t*>(out) + e0 * c)
+                         : static_cast<void*>(static_cast<unsigned long long*>(out) + e0);
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
+    auto kernel = n > 1 ? decrypt_kernel<kPerChunk, kVec, true>
+                        : decrypt_kernel<kPerChunk, kVec, false>;
+    kernel<<<grid, kThreads, smem, stream>>>(
+        static_cast<const uint32_t*>(x) + e0 * w * c, static_cast<const uint32_t*>(mask), oe,
+        w, c);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// words [w, c], mask [w].  per_chunk = 0: adds the match count into the zeroed
-// int64 `out`; per_chunk = 1: writes int32 out[c] match bits.  vec is 4 (needs
-// c % 4 == 0 and 16-byte-aligned words) or 1.  Returns cudaGetLastError().
-extern "C" int csgn_decrypt(const void* words, const void* mask, void* out, int64_t w,
-                            int64_t c, int64_t per_chunk, int64_t vec, void* stream) {
+// words [batch, w, c], mask [w].  per_chunk = 0: adds element e's match count
+// into the zeroed int64 out[e]; per_chunk = 1: writes int32 out[e, c] match
+// bits.  vec is 4 (needs c % 4 == 0 and 16-byte-aligned words) or 1.
+// Launches ceil(batch / 65535) grids.  Returns cudaGetLastError().
+extern "C" int csgn_decrypt(const void* words, const void* mask, void* out, int64_t batch,
+                            int64_t w, int64_t c, int64_t per_chunk, int64_t vec,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (vec != 1 && vec != 4) return cudaErrorInvalidValue;
   if (per_chunk) {
-    return vec == 4 ? launch<true, 4>(words, mask, out, w, c, s)
-                    : launch<true, 1>(words, mask, out, w, c, s);
+    return vec == 4 ? launch<true, 4>(words, mask, out, batch, w, c, s)
+                    : launch<true, 1>(words, mask, out, batch, w, c, s);
   }
-  return vec == 4 ? launch<false, 4>(words, mask, out, w, c, s)
-                  : launch<false, 1>(words, mask, out, w, c, s);
+  return vec == 4 ? launch<false, 4>(words, mask, out, batch, w, c, s)
+                  : launch<false, 1>(words, mask, out, batch, w, c, s);
 }

@@ -1,17 +1,20 @@
 """Build and load the port's CUDA kernels (`csgn_tpu_torch/csrc/*.cu`).
 
-The sources are compiled by ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, ``build/csgn_tpu_torch/libcsgn_kernels.so`` under the
-checkout, and loaded with ctypes.  The build runs at first use and again
-whenever the sources' content hash changes; a missing ``nvcc`` or a failed
-build raises — there is no fallback.
+The sources are compiled by ``nvcc`` for ``sm_90a``, one process per source,
+all started together, and linked into one shared library with a plain C
+interface, ``build/csgn_tpu_torch/libcsgn_kernels.so`` under the checkout,
+loaded with ctypes.  The build runs at first use and again whenever the
+sources' content hash changes; a missing ``nvcc`` or a failed build raises —
+there is no fallback.
 
 Calling convention of every C entry: pointers and the stream are
 ``ctypes.c_void_p``, sizes ``ctypes.c_int64``; it returns
 ``cudaGetLastError()`` (0 = success), and `check` raises on anything else.
 
 ``LAUNCHES`` counts, per wrapper, the kernels actually launched (not the
-calls served by the plain torch versions on CPU tensors).
+calls served by the plain torch versions on CPU tensors).  A batched entry
+takes the element from ``blockIdx.y`` and launches one grid per
+``MAX_GRID_Y`` elements (`grids`).
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import tempfile
 
 import torch
 
-__all__ = ["LAUNCHES", "NVCC_FLAGS", "lib", "library_path", "check", "stream_of", "ptr"]
+__all__ = ["LAUNCHES", "NVCC_FLAGS", "MAX_GRID_Y", "lib", "library_path", "check", "stream_of",
+           "ptr", "grids"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -35,8 +39,10 @@ _BUILD = _PKG.parent / "build" / "csgn_tpu_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+
+MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y
 
 LAUNCHES = {
     "mul_chunks": 0,
@@ -44,15 +50,25 @@ LAUNCHES = {
     "decrypt_parity": 0,
     "chunk_matches": 0,
     "encrypt_bits_counter": 0,
+    # the same K1-K3 kernels launched on batched [B, W, C] operands
+    "mul_chunks_batched": 0,
+    "mul_decrypt_batched": 0,
+    "decrypt_parity_batched": 0,
+    "chunk_matches_batched": 0,
+    "apply_benes": 0,
+    "apply_benes_batch": 0,
+    "apply_benes_decrypt": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _SIGNATURES = {
-    # a, b, mask, out, count, w, t1, t2, vec, stream
-    "csgn_mul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # words, mask, out, w, c, per_chunk, vec, stream
-    "csgn_decrypt": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # a, b, mask, out, count, batch, w, t1, t2, vec, stream
+    "csgn_mul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # words, mask, out, batch, w, c, per_chunk, vec, stream
+    "csgn_decrypt": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, masks, sched, key, out, count, batch, w, c, wp, stages, w_net, plan_stride, stream
+    "csgn_benes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # bits, key_idx, mask, valid, out, w, d, batch, seed_lo, seed_hi, stream
     "csgn_encrypt_counter": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
@@ -90,20 +106,29 @@ def library_path() -> pathlib.Path:
 
 def _build(so: pathlib.Path, stamp: pathlib.Path, digest: str) -> None:
     so.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=so.parent)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = str(pathlib.Path(tmp) / f"{src.stem}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for cmd, _, proc in jobs:  # wait for every compile, then report
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        out_so = str(pathlib.Path(tmp) / so.name)
+        cmd = [nvcc, "-shared", *(obj for _, obj, _ in jobs), "-o", out_so]
         res = subprocess.run(cmd, capture_output=True, text=True, check=False)
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
+                f"nvcc link failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
             )
-        os.replace(tmp, so)  # atomic: a concurrent loader sees old or new
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(out_so, so)  # atomic: a concurrent loader sees old or new
     stamp.write_text(digest)
 
 
@@ -140,3 +165,8 @@ def stream_of(t: torch.Tensor) -> int:
 
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
+
+
+def grids(batch: int) -> int:
+    """Kernel launches a batched C entry makes for `batch` elements."""
+    return -(-batch // MAX_GRID_Y)

@@ -20,7 +20,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["add_chunks", "mul_chunks", "chunk_matches", "decrypt_parity", "keygen"]
+from csgn_tpu_torch import layout
+
+__all__ = ["add_chunks", "mul_chunks", "chunk_matches", "decrypt_parity", "permute_chunks",
+           "keygen"]
 
 
 def add_chunks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -55,6 +58,18 @@ def decrypt_parity(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     with one bit per leading batch index (a 0-dim tensor for [W, C]).
     """
     return chunk_matches(words, mask).sum(dim=-1) & 1
+
+
+def permute_chunks(words: torch.Tensor, perm: torch.Tensor, n: int) -> torch.Tensor:
+    """Apply bit-position permutation per chunk: out bit i = in bit perm[i].
+
+    words: int32[..., W, C] -> same shape; perm: int64 or int32 [n].  The
+    gather oracle of the Beneš kernels (unpack -> row gather -> pack), as in
+    `csgn_tpu.ops.core.permute_chunks` (reference src/Ciphertext.cpp:33-34).
+    """
+    bits = layout.unpack_bits_wc(words, n)
+    out = torch.index_select(bits, -2, perm.to(device=words.device, dtype=torch.int64))
+    return layout.pack_bits_wc(out)
 
 
 def keygen(n: int, d: int, generator: torch.Generator) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Op dispatch for the multiply and decrypt half of the slice.
+"""Op dispatch: multiply, decrypt and permute, single and batched.
 
 The JAX package routes by backend, size and lane alignment (flat / tiled /
 grouped / ragged / j-major kernels, `MUL_PALLAS_MIN_OUT`) because Mosaic
@@ -7,13 +7,20 @@ write the canonical i-major product for any shape, so here the route is the
 device alone: a CUDA tensor goes to the kernel, a CPU tensor to the plain
 torch version.  Which route served each call is counted in `op_metrics()`
 as ``dispatch.<op>.<cuda|plain>``.
+
+Batched ops take ``[B, W, C]`` words and always return canonical i-major
+order with no pad chunks (the JAX package's `mul_chunks_batched` may return
+j-major or padded products with an order tag; the port never does), so
+`CiphertextBatch` needs no tag.  The permutations run the Beneš kernels of
+`ops.benes_kernels` at every size (the JAX package switches to Pallas from
+`BENES_PALLAS_MIN_C` chunks; the CUDA kernel has no such threshold).
 """
 
 from __future__ import annotations
 
 import torch
 
-from csgn_tpu_torch.ops import kernels
+from csgn_tpu_torch.ops import benes_kernels, kernels
 from csgn_tpu_torch.utils.metrics import op_metrics
 
 __all__ = [
@@ -22,6 +29,12 @@ __all__ = [
     "mul_decrypt_count",
     "decrypt_parity",
     "chunk_matches",
+    "mul_chunks_batched",
+    "mul_decrypt_batched",
+    "permute",
+    "permute_batched",
+    "permute_batched_multi",
+    "permute_decrypt",
 ]
 
 
@@ -50,7 +63,8 @@ def mul_decrypt_count(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor):
 
 
 def decrypt_parity(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Parity of the per-chunk match bits of [W, C] (int64 0-dim tensor)."""
+    """Parity of the per-chunk match bits of [W, C] (int64 0-dim tensor), or
+    of each element of a batch [B, W, C] (int64[B])."""
     _path("decrypt", words)
     return kernels.decrypt_parity(words, mask)
 
@@ -59,3 +73,52 @@ def chunk_matches(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Per-chunk match bits of [W, C] -> int32[C]."""
     _path("chunk_matches", words)
     return kernels.chunk_matches(words, mask)
+
+
+def mul_chunks_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[B,W,t1] x [B,W,t2] -> [B,W,t1*t2]: element i is the canonical cross
+    product of the operands' elements i (one launch for the batch)."""
+    _path("mul_batched", a)
+    return kernels.mul_chunks(a, b)
+
+
+def mul_decrypt_batched(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor):
+    """Batched fused multiply + decrypt: ``(prod [B,W,t1*t2], parity int64[B])``.
+    Bit-exact to ``decrypt_parity(mul_chunks_batched(a, b), mask)``."""
+    _path("mul_dec_batched", a)
+    return kernels.mul_decrypt(a, b, mask)
+
+
+def permute(words: torch.Tensor, plan) -> torch.Tensor:
+    """Beneš permutation of [W, C] (K8)."""
+    _path("permute", words)
+    return benes_kernels.apply_benes(words, plan)
+
+
+def permute_batched(words: torch.Tensor, plan) -> torch.Tensor:
+    """One Beneš plan over every element of [B, W, C]: K8 with a batch grid,
+    where the JAX package vmaps its K8.  The body is `permute`'s; the name
+    and the route label mirror the JAX package's dispatch."""
+    _path("permute_batched", words)
+    return benes_kernels.apply_benes(words, plan)
+
+
+def permute_batched_multi(words: torch.Tensor, stacked) -> torch.Tensor:
+    """k DIFFERENT permutations over k ciphertexts [k, W, C] (K9): plan i's
+    masks are selected by the batch index — the key-rotation-fleet pattern."""
+    _path("permute_batched_multi", words)
+    return benes_kernels.apply_benes_batch(words, stacked)
+
+
+def permute_decrypt(words: torch.Tensor, plan, mask: torch.Tensor):
+    """Permutation + decrypt: ``(permuted [W, C], parity)``.
+
+    `mask` must be the key matching the OUTPUT (the permuted key's mask).
+    Staged — K8 then K3 — as the JAX package keeps it
+    (csgn_tpu/ops/dispatch.py:533-559).  The one-pass kernel K12 stays
+    available as `benes_kernels.apply_benes_decrypt`, as it does there;
+    both are bit-exact.
+    """
+    _path("permute_dec", words)
+    out = benes_kernels.apply_benes(words, plan)
+    return out, kernels.decrypt_parity(out, mask)

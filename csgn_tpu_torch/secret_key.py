@@ -1,4 +1,5 @@
-"""Secret key: encryption, decryption and the fused multiply + decrypt.
+"""Secret key: encryption, decryption, the fused multiply + decrypt, and the
+key transform under a permutation.
 
 Counterpart of `csgn_tpu.secret_key.SecretKey` (reference
 `certFHE::SecretKey`, src/SecretKey.{h,cpp}).  The key is d distinct bit
@@ -20,10 +21,12 @@ import numpy as np
 import torch
 
 from csgn_tpu_torch import layout
+from csgn_tpu_torch.batch import CiphertextBatch
 from csgn_tpu_torch.ciphertext import Ciphertext
 from csgn_tpu_torch.context import Context
 from csgn_tpu_torch.ops import core, dispatch
 from csgn_tpu_torch.ops.encrypt_kernels import encrypt_bits_counter
+from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.plaintext import Plaintext
 from csgn_tpu_torch.utils.metrics import op_metrics
 
@@ -119,16 +122,32 @@ class SecretKey:
         ):
             return Plaintext(int(dispatch.decrypt_parity(ciphertext.wt, self._mask_t)))
 
-    def decrypt_batch(self, words: torch.Tensor) -> torch.Tensor:
-        """Decrypt fresh single-chunk ciphertexts ``int32[W, batch]`` -> bits
-        int32[batch] (the parity of one chunk is its match bit)."""
+    def decrypt_batch(self, words) -> torch.Tensor:
+        """Decrypt a batch of ciphertexts -> bits int32[batch].
+
+        Accepts either fresh single-chunk batches ``int32[W, batch]`` (parity
+        of one chunk == its match bit) or a `CiphertextBatch` / grown payload
+        ``int32[batch, W, chunks]`` (per-element parity across chunks).
+        """
         w = self.ctx.words32
+        if isinstance(words, CiphertextBatch):
+            if words.ctx != self.ctx:
+                raise ValueError("ciphertext context mismatch")
+            words = words.wt
         if not isinstance(words, torch.Tensor):
             raise TypeError(f"decrypt_batch expects a torch.Tensor, got {type(words).__name__}")
+        words = words.contiguous()  # the kernels read dense rows
         if words.dim() == 3:
-            raise NotImplementedError(
-                "decrypt_batch of grown [batch, W, chunks] payloads is not ported yet"
-            )
+            if words.shape[1] != w:
+                raise ValueError(
+                    f"decrypt_batch grown payload must be [batch, W={w}, chunks], "
+                    f"got {tuple(words.shape)}"
+                )
+            with op_metrics().record(
+                "key.decrypt_batch", chunks_in=words.shape[0] * words.shape[-1],
+                bytes_moved=words.numel() * 4,
+            ):
+                return dispatch.decrypt_parity(words, self._mask_t).to(torch.int32)
         if words.dim() != 2 or words.shape[0] != w:
             raise ValueError(
                 f"decrypt_batch fresh chunks must be [W={w}, batch] "
@@ -158,6 +177,25 @@ class SecretKey:
             out, parity = dispatch.mul_decrypt(c1.wt, c2.wt, self._mask_t)
             return Ciphertext(out, self.ctx), Plaintext(int(parity))
 
+    def mul_and_decrypt_batch(self, cb1: CiphertextBatch, cb2: CiphertextBatch):
+        """Batched fused multiply + decrypt: ``(cb1 * cb2, bits int32[B])`` —
+        every element's product and its decrypt parity in one launch.
+        Bit-exact to ``self.decrypt_batch(cb1 * cb2)``."""
+        if not isinstance(cb1, CiphertextBatch) or not isinstance(cb2, CiphertextBatch):
+            raise TypeError("mul_and_decrypt_batch expects CiphertextBatch operands")
+        if cb1.ctx != self.ctx or cb2.ctx != self.ctx:
+            raise ValueError("ciphertext context mismatch")
+        if cb1.batch != cb2.batch:
+            raise ValueError(f"batch mismatch: {cb1.batch} vs {cb2.batch}")
+        t1, t2 = cb1.chunks, cb2.chunks
+        with op_metrics().record(
+            "key.mul_and_decrypt_batch", chunks_in=cb1.batch * (t1 + t2),
+            chunks_out=cb1.batch * t1 * t2,
+            bytes_moved=cb1.batch * self.ctx.chunk_count_bytes(t1 + t2 + t1 * t2),
+        ):
+            out, bits = dispatch.mul_decrypt_batched(cb1.wt, cb2.wt, self._mask_t)
+            return CiphertextBatch(out, self.ctx), bits.to(torch.int32)
+
     def decrypt_product(self, cts: list[Ciphertext]) -> Plaintext:
         """Decrypt a product WITHOUT materializing it: Dec(∏ cᵢ) = ∧ Dec(cᵢ)."""
         acc = 1
@@ -171,6 +209,43 @@ class SecretKey:
         """Key-side re-encryption: decrypt, then a fresh 1-chunk ciphertext
         of the same bit (the growth reset of this bounded scheme)."""
         return self.encrypt(int(self.decrypt(ciphertext)), seed)
+
+    # -- permutation --------------------------------------------------------
+
+    def permute_and_decrypt(
+        self, ciphertext: Ciphertext, p: Permutation
+    ) -> tuple[Ciphertext, Plaintext]:
+        """Key rotation + readout: ``(π(c), Dec_{π(k)}(π(c)))``.
+
+        The reference's permute-then-decrypt flow (tests/timings.cpp:56-66),
+        staged (K8 then K3) as the JAX package keeps it (see
+        `ops.dispatch.permute_decrypt`).  By the transform identity the
+        result equals ``self.decrypt(ciphertext)``.
+        """
+        self._check(ciphertext)
+        if p.n != self.ctx.n:
+            raise ValueError(f"permutation length {p.n} != context n {self.ctx.n}")
+        psk = self.apply_permutation(p)
+        with op_metrics().record(
+            "key.permute_and_decrypt", chunks_in=ciphertext.chunks,
+            chunks_out=ciphertext.chunks,
+            bytes_moved=2 * self.ctx.chunk_count_bytes(ciphertext.chunks),
+        ):
+            out, parity = dispatch.permute_decrypt(ciphertext.wt, p.benes_plan(), psk.mask_words)
+            return Ciphertext(out, self.ctx), Plaintext(int(parity))
+
+    def apply_permutation(self, p: Permutation) -> "SecretKey":
+        """Key transform: Dec_{π(k)}(π(c)) = Dec_k(c), a new key on the same
+        device.
+
+        The permuted key's positions are { i : π[i] ∈ s } = π⁻¹[s]; the
+        reference re-extracts them in ascending order
+        (src/SecretKey.cpp:244-250), which we match.
+        """
+        if p.n != self.ctx.n:
+            raise ValueError(f"permutation length {p.n} != context n {self.ctx.n}")
+        inv = np.argsort(p.perm)
+        return SecretKey(self.ctx, np.sort(inv[self.indices]).astype(np.int32), self.device)
 
     def __repr__(self) -> str:
         return f"SecretKey(ctx={self.ctx}, d={self.ctx.d}, device={self.device})"

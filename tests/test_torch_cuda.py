@@ -13,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from csgn_tpu_torch import Ciphertext, Context, SecretKey
+from csgn_tpu_torch import Ciphertext, CiphertextBatch, Context, Permutation, SecretKey
 from csgn_tpu_torch.layout import words_from_numpy
-from csgn_tpu_torch.ops import encrypt_kernels, kernels
+from csgn_tpu_torch.ops import benes_kernels, encrypt_kernels, kernels
+from csgn_tpu_torch.ops import core
+from csgn_tpu_torch.ops import permute_benes as pb
 
 pytestmark = pytest.mark.cuda
 
@@ -123,5 +125,117 @@ def test_launch_counters_count_kernel_launches(dev):
     sk.decrypt(c)
     sk.mul_and_decrypt(c, c)
     c * c
+    p = Permutation.random(CTX, torch.Generator().manual_seed(1))
+    cc = c.apply_permutation(p)
+    b = CiphertextBatch.stack([c, cc])
+    sk.decrypt_batch(b * b)
+    sk.mul_and_decrypt_batch(b, b)
+    b.apply_permutations([p, p.inverse()])
+    benes_kernels.apply_benes_decrypt(c.wt, p.benes_plan(), sk.apply_permutation(p).mask_words)
+    kernels.chunk_matches(b.wt, sk.mask_words)
     for name in before:
         assert kernels.LAUNCHES[name] == before[name] + 1, name
+
+
+def _perm_words(n, lead, chunks, seed, dev):
+    ctx = Context(n, min(16, n // 2))
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2**32, size=(*lead, ctx.words32, chunks), dtype=np.uint32)
+    return ctx, rng, words_from_numpy(w & ctx.valid_mask[:, None], dev)
+
+
+@pytest.mark.parametrize("n", [17, 20, 31, 100, 1247, 4095])
+@pytest.mark.parametrize("chunks", [1, 127, 129, 1025])
+def test_benes_k8_k12_match_plain(dev, n, chunks):
+    """Ragged chunk counts (not a multiple of the 128-column block) and
+    n < 32 (W = 2 rows against a 1-row network)."""
+    ctx, rng, x = _perm_words(n, (), chunks, n * 10 + chunks, dev)
+    p = Permutation(rng.permutation(n))
+    plan = p.benes_plan()
+    want = benes_kernels.apply_benes_plain(x, plan)
+    got = benes_kernels.apply_benes(x, plan)
+    assert torch.equal(got, want)
+    assert torch.equal(got, core.permute_chunks(x, torch.tensor(p.perm), n))
+    sk = _key(ctx, n, "cpu").apply_permutation(p)
+    key = sk.mask_words.to(dev)
+    # Force matches with the output key into chosen columns: permute the
+    # key's mask back through p^-1 and OR it into the input.
+    pre = core.permute_chunks(key[:, None], torch.tensor(p.inverse().perm), n)
+    x[:, 0:chunks:3] |= pre
+    out, count = benes_kernels.apply_benes_decrypt(x, plan, key, return_count=True)
+    want_out, want_count = benes_kernels.apply_benes_decrypt_plain(x, plan, key,
+                                                                   return_count=True)
+    assert torch.equal(out, want_out)
+    assert int(count) == int(want_count) >= len(range(0, chunks, 3))
+    assert int(benes_kernels.apply_benes_decrypt(x, plan, key)[1]) == int(want_count) & 1
+
+
+@pytest.mark.parametrize("n", [20, 1247])
+@pytest.mark.parametrize("k,chunks", [(1, 129), (3, 1), (3, 1025), (64, 33)])
+def test_benes_k9_and_shared_plan_match_plain(dev, n, k, chunks):
+    _, rng, x = _perm_words(n, (k,), chunks, k * 100 + chunks, dev)
+    perms = [Permutation(rng.permutation(n)) for _ in range(k)]
+    stacked = pb.stack_plans([q.benes_plan() for q in perms])
+    got = benes_kernels.apply_benes_batch(x, stacked)
+    assert torch.equal(got, benes_kernels.apply_benes_batch_plain(x, stacked))
+    for i in (0, k - 1):
+        assert torch.equal(got[i], benes_kernels.apply_benes(x[i].contiguous(),
+                                                             perms[i].benes_plan()))
+    shared = benes_kernels.apply_benes(x, perms[0].benes_plan())
+    assert torch.equal(shared, benes_kernels.apply_benes_plain(x, perms[0].benes_plan()))
+
+
+def test_benes_zero_stage_plans(dev):
+    n = 1247
+    _, _, x = _perm_words(n, (), 300, 5, dev)
+    swap = np.arange(n)
+    swap[3], swap[n - 7] = swap[n - 7], swap[3]
+    for p in (Permutation.identity(n), Permutation(swap)):
+        assert torch.equal(benes_kernels.apply_benes(x, p.benes_plan()),
+                           benes_kernels.apply_benes_plain(x, p.benes_plan()))
+    assert torch.equal(benes_kernels.apply_benes(x, Permutation.identity(n).benes_plan()), x)
+
+
+@pytest.mark.parametrize("batch,t1,t2", [(1, 3, 5), (4, 1, 1), (5, 13, 7), (3, 128, 130)])
+def test_batched_k1_k3_match_2d_calls(dev, batch, t1, t2):
+    sk = _key(CTX, batch + t1, dev)
+    a = torch.stack([_words(CTX, t1, 10 * e + 1, dev, sk.mask, forced=range(e % 2, t1, 2))
+                     for e in range(batch)])
+    b = torch.stack([_words(CTX, t2, 10 * e + 2, dev, sk.mask, forced=range(0, t2, 3))
+                     for e in range(batch)])
+    m = sk.mask_words
+    prod = kernels.mul_chunks(a, b)
+    prod2, count = kernels.mul_decrypt(a, b, m, return_count=True)
+    _, parity = kernels.mul_decrypt(a, b, m)
+    assert torch.equal(prod, kernels.mul_chunks_plain(a, b)) and torch.equal(prod2, prod)
+    dec = kernels.decrypt_parity(prod, m)
+    matches = kernels.chunk_matches(prod, m)
+    for e in range(batch):
+        assert torch.equal(prod[e], kernels.mul_chunks(a[e], b[e]))
+        want = int(kernels.mul_decrypt(a[e], b[e], m, return_count=True)[1])
+        assert int(count[e]) == want and int(parity[e]) == want & 1 == int(dec[e])
+        assert torch.equal(matches[e], kernels.chunk_matches(prod[e], m))
+    assert torch.equal(dec, kernels.decrypt_parity_plain(prod, m))
+
+
+def test_batches_past_the_grid_limit(dev):
+    """More than 65535 elements take two grids (blockIdx.y is the element);
+    every element past the first grid is still computed, and both grids
+    count as launches."""
+    batch = 65535 + 3
+    sk = _key(SMALL, 2, dev)
+    m = sk.mask_words
+    a = torch.stack([_words(SMALL, 2, 1, dev, sk.mask, forced=(0,))] * batch)
+    a[-1, :, 0] = 0     # the last element loses its forced match
+    b = torch.stack([_words(SMALL, 3, 2, dev, sk.mask, forced=(1,))] * batch)
+    before = dict(kernels.LAUNCHES)
+    prod, count = kernels.mul_decrypt(a, b, m, return_count=True)
+    assert torch.equal(prod, kernels.mul_chunks_plain(a, b))
+    assert torch.equal(count, kernels.mul_decrypt_plain(a, b, m, return_count=True)[1])
+    assert int(count[-1]) == 0 < int(count[-2])
+    assert torch.equal(kernels.decrypt_parity(prod, m), kernels.decrypt_parity_plain(prod, m))
+    p = Permutation(np.random.default_rng(3).permutation(SMALL.n))
+    got = benes_kernels.apply_benes(prod, p.benes_plan())
+    assert torch.equal(got, benes_kernels.apply_benes_plain(prod, p.benes_plan()))
+    for name in ("mul_decrypt_batched", "decrypt_parity_batched", "apply_benes"):
+        assert kernels.LAUNCHES[name] == before[name] + 2, name

@@ -12,9 +12,10 @@ import numpy as np
 import pytest
 import torch
 
-from csgn_tpu_torch import Ciphertext, Context, SecretKey
+from csgn_tpu_torch import Ciphertext, Context, Permutation, SecretKey
 from csgn_tpu_torch.layout import words_from_numpy
-from csgn_tpu_torch.ops import encrypt_kernels, kernels
+from csgn_tpu_torch.ops import benes_kernels, encrypt_kernels, kernels
+from csgn_tpu_torch.ops import permute_benes as pb
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CTX = Context(95, 4)
@@ -29,7 +30,9 @@ def _run(args, **kw):
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, csgn_tpu_torch, csgn_tpu_torch.convert, csgn_tpu_torch.ops.dispatch, "
-        "csgn_tpu_torch.ops.encrypt_kernels, csgn_tpu_torch.utils; "
+        "csgn_tpu_torch.ops.encrypt_kernels, csgn_tpu_torch.utils, csgn_tpu_torch.batch, "
+        "csgn_tpu_torch.permutation, csgn_tpu_torch.ops.benes_kernels, "
+        "csgn_tpu_torch.ops.permute_benes; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'csgn_tpu.')) "
         "or m == 'csgn_tpu'); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -100,10 +103,39 @@ def test_decrypt_batch_guards():
     assert sk.decrypt_batch(words).tolist() == [1, 0, 1, 1, 0, 1]
     with pytest.raises(ValueError, match="transposed"):
         sk.decrypt_batch(words.t().contiguous())
-    with pytest.raises(NotImplementedError):
-        sk.decrypt_batch(words[None])
+    # A grown [batch, W, chunks] payload decrypts per element (parity of 6).
+    assert sk.decrypt_batch(words[None]).tolist() == [0]
+    assert sk.decrypt_batch(torch.stack([words, words[:, :3].contiguous().repeat(1, 2)])
+                            ).tolist() == [0, 0]
+    with pytest.raises(ValueError, match=r"\[batch, W=4, chunks\]"):
+        sk.decrypt_batch(words.t()[None])
     with pytest.raises(TypeError):
         sk.decrypt_batch(words.numpy())
+
+
+def test_benes_wrappers_reject_bad_operands():
+    plan = Permutation.random(CTX, torch.Generator().manual_seed(0)).benes_plan()
+    words, mask = _words(5), words_from_numpy(CTX.valid_mask)
+    stacked = pb.stack_plans([plan, plan])
+    assert benes_kernels.apply_benes(words, plan).shape == words.shape
+    with pytest.raises(TypeError, match="int32"):
+        benes_kernels.apply_benes(words.long(), plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        benes_kernels.apply_benes(_words(5).t().contiguous().t(), plan)
+    with pytest.raises(ValueError, match="device"):
+        benes_kernels.apply_benes(words.to("meta"), plan)
+    with pytest.raises(ValueError, match=r"\[k=2, W, C\]"):
+        benes_kernels.apply_benes_batch(words, stacked)
+    with pytest.raises(ValueError, match=r"\[k=2, W, C\]"):
+        benes_kernels.apply_benes_batch(torch.stack([words] * 3), stacked)
+    with pytest.raises(ValueError, match="mask"):
+        benes_kernels.apply_benes_decrypt(words, plan, mask[:-1])
+    with pytest.raises(ValueError, match=r"\[W, chunks\]"):
+        benes_kernels.apply_benes_decrypt(words[None], plan, mask)
+    with pytest.raises(ValueError, match="no plans"):
+        pb.stack_plans([])
+    with pytest.raises(ValueError, match="share n"):
+        pb.stack_plans([plan, Permutation.identity(94).benes_plan()])
 
 
 def test_key_and_ciphertext_guards():
