@@ -5,12 +5,12 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-With ``--profile`` it also runs phase 4b three more times warm and once
-under `torch.profiler`, and prints the rotation path's host wall, device
-busy time, idle share and heaviest kernels as [profile] lines.
+With ``--profile`` it also runs phases 4b and 4c three more times warm and
+once under `torch.profiler`, and prints each path's host wall, device busy
+time, idle share and heaviest kernels as [profile] lines.
 
 Phases, each printing lines tagged [device] / [build] / [check] / [main] /
-[rotate] / [time]:
+[rotate] / [circuit] / [time]:
 
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: the CUDA kernels from csgn_tpu_torch/csrc, with the seconds taken;
@@ -30,8 +30,18 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      staged, as in the JAX package), is called through its ops-level
      function on the rotated product; every kernel of this path must be
      launched during it;
+  4c. the circuit and serving path at Context(1247, 16): a multiplication
+     chain (4099 x 37, then x 111, fused with the decrypt), a 1021 x 16411
+     product and a 16 x 2^19 product (b beyond L2), each with `*` and
+     `mul_and_decrypt`; a `BatchExecutor` fleet of 64 16-bit adders
+     (materialized, one group launch) and 256 AES-128 blocks (key-side
+     route; request 0 is FIPS-197 C.1), with groups of every other submit_*
+     route; the multiply's unaligned and b-streamed modes must be launched
+     during it;
   5. timings of each kernel and its plain version at the paths' shapes
-     (CUDA events, warm-up, median of distinct inputs; nothing is asserted).
+     (CUDA events, warm-up, median of distinct inputs; nothing is asserted);
+     the multiply's modes also against the aligned mode and today's
+     4-byte-store walk, and a sweep of b's size for the streaming threshold.
 
 Then one JSON line with the kernels, and last the device JSON line.  Any
 failure raises and exits non-zero with no result; so does a machine without
@@ -41,7 +51,9 @@ a CUDA device.  All data is made from fixed seeds.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import operator
 import statistics
 import subprocess
 import sys
@@ -50,10 +62,14 @@ import time
 import numpy as np
 import torch
 
-from csgn_tpu_torch import Ciphertext, CiphertextBatch, Context, Permutation, SecretKey
+from csgn_tpu_torch import (BatchExecutor, Ciphertext, CiphertextBatch, Context, Permutation,
+                            SecretKey, models)
+from csgn_tpu_torch.circuit import lift
 from csgn_tpu_torch.layout import words_to_numpy
+from csgn_tpu_torch.models import netlist as nl
 from csgn_tpu_torch.ops import _build, benes_kernels, core, encrypt_kernels, kernels
 from csgn_tpu_torch.ops import permute_benes as pb
+from csgn_tpu_torch.pipeline import mul_chain, mul_chain_decrypt
 
 SEED = 20261016
 M32 = 0xFFFFFFFF
@@ -64,19 +80,38 @@ PERM_CHUNKS = 1 << 20     # K8/K12 at the JAX bench's permutation size (bench.py
 FLEET, FLEET_T = 64, 128  # rotation fleet: 64 elements of 128 chunks, squared
 REPS = 5
 
-# wrapper -> (source, TPU kernel it replaces)
-KERNELS = {
-    "mul_chunks": ("csgn_tpu_torch/csrc/mul.cu", "csgn_tpu/ops/kernels.py:84"),
-    "mul_decrypt": ("csgn_tpu_torch/csrc/mul.cu", "csgn_tpu/ops/kernels.py:158"),
-    "decrypt_parity": ("csgn_tpu_torch/csrc/decrypt.cu", "csgn_tpu/ops/kernels.py:631"),
-    "chunk_matches": ("csgn_tpu_torch/csrc/decrypt.cu", "csgn_tpu/ops/kernels.py:631"),
-    "encrypt_bits_counter": ("csgn_tpu_torch/csrc/encrypt.cu",
-                             "csgn_tpu/ops/encrypt_pallas.py:250"),
-    "apply_benes": ("csgn_tpu_torch/csrc/benes.cu", "csgn_tpu/ops/permute_benes.py:533"),
-    "apply_benes_batch": ("csgn_tpu_torch/csrc/benes.cu", "csgn_tpu/ops/permute_benes.py:399"),
-    "apply_benes_decrypt": ("csgn_tpu_torch/csrc/benes.cu",
-                            "csgn_tpu/ops/permute_benes.py:307"),
-}
+# Chain, large-operand and b-beyond-L2 shapes of phase 4c.
+CHAIN_T = (4099, 37, 111)         # 151,663 chunks, then 16,834,593 (2.69 GB)
+RAGGED_T = (1021, 16411)          # 16,755,631 chunks (2.68 GB)
+STREAM_T = (16, 1 << 19)          # b 84 MB, product 1.34 GB
+ADDERS, ADDER_BITS = 64, 16       # materialized netlist fleet
+AES_FLEET = 256                   # key-side netlist fleet
+FIPS197_C1 = ("000102030405060708090a0b0c0d0e0f", "00112233445566778899aabbccddeeff",
+              "69c4e0d86a7b0430d8cdb78070b4c55a")
+
+MUL_CU = "csgn_tpu_torch/csrc/mul.cu"
+# One row per Pallas function: (TPU kernel, launch key of the kernel or mode
+# that does its job, source, the function it replaces).  K10 and K11a are
+# both served by the multiply's unaligned mode; their rows share its launch
+# key and are timed at the shapes of their jobs (small t2, large t2).
+KERNELS = [
+    ("K1", "mul_chunks", MUL_CU, "csgn_tpu/ops/kernels.py:84"),
+    ("K2", "mul_decrypt", MUL_CU, "csgn_tpu/ops/kernels.py:158"),
+    ("K3", "decrypt_parity", "csgn_tpu_torch/csrc/decrypt.cu", "csgn_tpu/ops/kernels.py:631"),
+    ("K3", "chunk_matches", "csgn_tpu_torch/csrc/decrypt.cu", "csgn_tpu/ops/kernels.py:631"),
+    ("K4", "encrypt_bits_counter", "csgn_tpu_torch/csrc/encrypt.cu",
+     "csgn_tpu/ops/encrypt_pallas.py:250"),
+    ("K8", "apply_benes", "csgn_tpu_torch/csrc/benes.cu", "csgn_tpu/ops/permute_benes.py:533"),
+    ("K9", "apply_benes_batch", "csgn_tpu_torch/csrc/benes.cu",
+     "csgn_tpu/ops/permute_benes.py:399"),
+    ("K12", "apply_benes_decrypt", "csgn_tpu_torch/csrc/benes.cu",
+     "csgn_tpu/ops/permute_benes.py:307"),
+    ("K6a", "mul_chunks_tiled", MUL_CU, "csgn_tpu/ops/kernels.py:384"),
+    ("K6b", "mul_decrypt_tiled", MUL_CU, "csgn_tpu/ops/kernels.py:227"),
+    ("K10", "mul_chunks_unaligned", MUL_CU, "csgn_tpu/ops/kernels.py:307"),
+    ("K11a", "mul_chunks_unaligned", MUL_CU, "csgn_tpu/ops/kernels.py:444"),
+    ("K11b", "mul_decrypt_unaligned", MUL_CU, "csgn_tpu/ops/kernels.py:493"),
+]
 # The kernels each path must launch (LAUNCHES keys; "_batched" = the same
 # kernel on [B, W, C] operands, reported in its kernel's row).
 MAIN_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "chunk_matches",
@@ -84,6 +119,10 @@ MAIN_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "chunk_matches",
 ROTATION_PATH = ("apply_benes", "apply_benes_batch", "apply_benes_decrypt", "decrypt_parity",
                  "mul_chunks_batched", "mul_decrypt_batched", "decrypt_parity_batched",
                  "encrypt_bits_counter")
+CIRCUIT_PATH = ("mul_chunks_unaligned", "mul_decrypt_unaligned", "mul_chunks_tiled",
+                "mul_decrypt_tiled", "mul_chunks_unaligned_batched",
+                "mul_decrypt_unaligned_batched", "decrypt_parity_batched",
+                "encrypt_bits_counter", "apply_benes_batch")
 
 
 class SmokeFailure(RuntimeError):
@@ -208,6 +247,66 @@ def check_batched(ctx, sk, gen, dev, errs: dict) -> None:
         print(f"[check] batched mul_chunks + mul_decrypt + decrypt_parity + chunk_matches "
               f"{batch}x({t1}x{t2}): bit-equal, counts {count[:4].tolist()}...")
         del a, b, want, prod
+
+
+def _check_mode(name, a, b, m, errs: dict) -> int:
+    """One product and count in `name`'s mode against the plain versions;
+    returns the count."""
+    want = kernels.mul_chunks_plain(a, b)
+    e1 = max_abs_err(kernels.mul_chunks(a, b), want)
+    prod, count = kernels.mul_decrypt(a, b, m, return_count=True)
+    _, parity = kernels.mul_decrypt(a, b, m)
+    _, want_count = kernels.mul_decrypt_plain(a, b, m, return_count=True)
+    e2 = max(max_abs_err(prod, want), int((count - want_count).abs().max()),
+             int((parity - (want_count & 1)).abs().max()))
+    errs[f"mul_chunks_{name}"] = max(errs[f"mul_chunks_{name}"], e1)
+    errs[f"mul_decrypt_{name}"] = max(errs[f"mul_decrypt_{name}"], e2)
+    require(e1 == 0 and e2 == 0, f"{name} mode disagrees with plain at "
+            f"{tuple(a.shape)} x {tuple(b.shape)}")
+    return int(count.reshape(-1)[0])
+
+
+def check_modes(ctx, sk, gen, dev, errs: dict) -> None:
+    """The multiply's unaligned and b-streamed modes against the plain
+    versions, bit-exact: odd t1 with t2 in {1, 3, 37, 1021, 16411}, batches
+    of odd elements (at W = 6 their bases leave the 16-byte grid), b past
+    the streaming threshold, and phase 4c's full sizes."""
+    m = sk.mask_words
+    w = ctx.words32
+    t_stream = kernels.B_STREAM_BYTES // (4 * w) + 1
+    cases = [("unaligned", 4099, 1), ("unaligned", 4099, 3), ("unaligned", 4099, 37),
+             ("unaligned", 1021, 1021), ("unaligned", 7, 16411),
+             ("unaligned", CHAIN_T[0] * CHAIN_T[1], CHAIN_T[2]), ("unaligned", *RAGGED_T),
+             ("tiled", 3, t_stream), ("tiled", *STREAM_T)]
+    for mode, t1, t2 in cases:
+        require(kernels.mul_mode(w, t1, t2, True) == mode, f"{t1}x{t2} is not {mode}")
+        a = force(rand_words(ctx, t1, gen, dev), slice(0, t1, 2), m)
+        b = force(rand_words(ctx, t2, gen, dev), slice(0, t2, 3), m)
+        before = dict(kernels.LAUNCHES)
+        count = _check_mode(mode, a, b, m, errs)
+        require(kernels.LAUNCHES[f"mul_decrypt_{mode}"] == before[f"mul_decrypt_{mode}"] + 2,
+                f"{t1}x{t2} did not launch the {mode} mode")
+        require(count > 0, f"no forced matches counted at {t1}x{t2}")
+        print(f"[check] {mode} mode mul_chunks + mul_decrypt {t1}x{t2}: bit-equal, "
+              f"count {count}")
+        del a, b
+    odd = Context(150, 5)                                  # W = 6
+    osk = SecretKey(odd, np.arange(5) * 29, device=dev)
+    for mode, c, batch, t1, t2 in [("unaligned", ctx, 7, 13, 37), ("unaligned", odd, 5, 3, 7),
+                                   ("unaligned", odd, 9, 1, 1021),
+                                   ("tiled", ctx, 2, 3, t_stream)]:
+        mm = (sk if c is ctx else osk).mask_words
+        a = force(canon_words(c, (batch, c.words32, t1), gen, dev), slice(0, t1, 2), mm)
+        b = force(canon_words(c, (batch, c.words32, t2), gen, dev), slice(0, t2, 3), mm)
+        a[1::2] = canon_words(c, (batch // 2, c.words32, t1), gen, dev)
+        require(kernels.mul_mode(c.words32, t1, t2, True) == mode, "batched mode")
+        before = kernels.LAUNCHES[f"mul_chunks_{mode}_batched"]
+        count = _check_mode(mode, a, b, mm, errs)
+        require(kernels.LAUNCHES[f"mul_chunks_{mode}_batched"] == before + 1, "batched launch")
+        require(count > 0, "no forced matches counted in element 0")
+        print(f"[check] {mode} mode batched {batch}x({t1}x{t2}) at W={c.words32}: "
+              f"bit-equal per element")
+        del a, b
 
 
 BENES_NS = (20, 100, 1247)
@@ -407,18 +506,197 @@ def rotation_path(ctx, indices, prod: Ciphertext, p: Permutation, perms: list, r
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 4c: the circuit and serving path at full size, through the public API
+# ---------------------------------------------------------------------------
 
-def profile_rotation(ctx, indices, prod: Ciphertext, p: Permutation, perms: list, dev) -> None:
-    """Phase 4b three times warm (host wall), then once under torch.profiler:
+
+def _timed(steps: dict, name: str, fn):
+    """Run fn() between two synchronizations; record its host wall."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    steps[name] = time.perf_counter() - t0
+    return out
+
+
+def _columns(words: torch.Tensor, ctx) -> list:
+    """Fresh words [W, B] -> B one-chunk Ciphertexts (contiguous views)."""
+    cols = words.t().contiguous().unsqueeze(-1)
+    return [Ciphertext(cols[k], ctx) for k in range(cols.shape[0])]
+
+
+def circuit_setup(ctx, pgen) -> dict:
+    """Host set-up of phase 4c: the netlists and the permutations' plans."""
+    t0 = time.perf_counter()
+    perms = [Permutation.random(ctx, pgen) for _ in range(8)]
+    for q in perms:
+        q.benes_plan()
+    setup = {"adder": nl.adder(ADDER_BITS), "aes": models.aes128(), "perms": perms}
+    print(f"[circuit] set-up: adder({ADDER_BITS}) ({len(setup['adder'].gates)} gates), "
+          f"aes128() ({len(setup['aes'].gates)} gates), {len(perms)} Beneš plans in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return setup
+
+
+def circuit_path(ctx, indices, setup: dict, rng, dev) -> tuple[dict, dict]:
+    """Chains, large and b-beyond-L2 products, and the serving executor's
+    netlist fleets; returns (launches, host wall per step)."""
+    chain_bits = [odd_bits(rng, t) for t in CHAIN_T]             # each decrypts to 1
+    rag_bits = [odd_bits(rng, t) for t in RAGGED_T]               # the product: 1
+    str_bits = [rng.integers(0, 2, t).astype(np.int32) for t in STREAM_T]
+    str_bits[1][0] ^= int(str_bits[1].sum() % 2)                  # the product: 0
+    adder_in = rng.integers(0, 1 << ADDER_BITS, (ADDERS, 2))
+    aes_bytes = rng.integers(0, 256, (AES_FLEET, 2, 16)).astype(np.uint8)
+    aes_bytes[0] = [np.frombuffer(bytes.fromhex(h), np.uint8) for h in FIPS197_C1[:2]]
+    enc_bits = rng.integers(0, 2, 100)
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    steps: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    sk = SecretKey(ctx, indices, device=dev)
+    m = sk.mask_words
+
+    def oracle(words):  # parity from the plain per-chunk matches on the card
+        return int(core.chunk_matches(words, m).sum() & 1)
+
+    # 1. Multiplication chain: 4099 x 37 unfused, then x 111 fused with the decrypt.
+    cts = [Ciphertext(sk.encrypt_batch(b, SEED + 300 + i), ctx) for i, b in enumerate(chain_bits)]
+    two = _timed(steps, f"mul_chain {CHAIN_T[0]}x{CHAIN_T[1]}", lambda: mul_chain(cts[:2]))
+    d_two = int(sk.decrypt(two))
+    three, p_chain = _timed(steps, f"mul_chain_decrypt x{CHAIN_T[2]}", lambda: mul_chain_decrypt(cts, sk))
+    require(three.chunks == CHAIN_T[0] * CHAIN_T[1] * CHAIN_T[2], "chain product size")
+    require(torch.equal(three.wt, core.mul_chunks(two.wt, cts[2].wt)),
+            "chain product != plain product of its steps")
+    require(d_two == 1 and int(p_chain) == 1 == oracle(three.wt),
+            f"chain parities {d_two}, {int(p_chain)} != 1")
+    print(f"[circuit] chain {CHAIN_T[0]} x {CHAIN_T[1]} -> {two.chunks} chunks, decrypt "
+          f"{d_two}; x {CHAIN_T[2]} fused with the decrypt -> {three.chunks} chunks "
+          f"({three.nbytes / 1e9:.2f} GB), parity {int(p_chain)}")
+    del two, three, cts
+
+    # 2. and 3. A large unaligned operand, and b beyond L2: `*` and the fused form.
+    for tag, bits, want in (("ragged", rag_bits, 1), ("stream", str_bits, 0)):
+        c1, c2 = (Ciphertext(sk.encrypt_batch(b, SEED + 310 + i), ctx) for i, b in enumerate(bits))
+        prod = _timed(steps, f"{tag} *", lambda: c1 * c2)
+        prod2, p = _timed(steps, f"{tag} mul_and_decrypt", lambda: sk.mul_and_decrypt(c1, c2))
+        require(torch.equal(prod.wt, prod2.wt), f"{tag}: * != mul_and_decrypt's product")
+        require(int(p) == oracle(prod.wt) == want, f"{tag}: parity {int(p)} != {want}")
+        print(f"[circuit] {c1.chunks} x {c2.chunks} -> {prod.chunks} chunks "
+              f"({prod.nbytes / 1e9:.2f} GB; b {c2.nbytes / 1e6:.0f} MB): `*` and "
+              f"mul_and_decrypt bit-equal, parity {int(p)} = the chunk_matches oracle")
+        del c1, c2, prod, prod2
+
+    # 4. BatchExecutor, materialized route: 64 16-bit adders in one group.
+    ex = BatchExecutor(sk, seed=SEED)
+    adder = setup["adder"]
+    bits = (adder_in[:, :, None] >> np.arange(ADDER_BITS)) & 1          # [64, 2, 16]
+    wires = _columns(sk.encrypt_batch(bits.reshape(-1), SEED + 400), ctx)
+    w2 = 2 * ADDER_BITS
+    futs = [ex.submit_netlist(adder, [wires[r * w2:r * w2 + ADDER_BITS],
+                                      wires[r * w2 + ADDER_BITS:(r + 1) * w2]])
+            for r in range(ADDERS)]
+    g0 = ex.stats["group_dispatches"]
+    _timed(steps, "serve adder fleet", ex.flush)
+    groups = ex.stats["group_dispatches"] - g0
+    outs = [f.result()[0] for f in futs]
+    peak = max(ct.chunks for ct in outs[0])
+    dec = [[ex.submit_decrypt(ct) for ct in o] for o in outs]
+    _timed(steps, "serve decrypt", ex.flush)
+    got = np.array([[f.result() for f in row] for row in dec])
+    want_bits = np.array([nl.eval_plain(adder, [bits[r, 0], bits[r, 1]])[0]
+                          for r in range(ADDERS)])
+    sums = (got << np.arange(ADDER_BITS + 1)).sum(axis=1)
+    require(groups == 1, f"adder fleet took {groups} group launches, not 1")
+    require(np.array_equal(got, want_bits), "adder sums != eval_plain")
+    require(np.array_equal(sums, adder_in.sum(axis=1)), "adder sums != a + b")
+    print(f"[circuit] BatchExecutor.submit_netlist: {ADDERS} adder({ADDER_BITS}) requests in "
+          f"{groups} group launch, peak {peak} chunks per wire "
+          f"({ADDERS * ctx.chunk_count_bytes(peak) / 1e9:.2f} GB across the fleet); "
+          f"{ADDERS} sums = eval_plain = a + b")
+    del outs, futs, dec
+
+    # 5. BatchExecutor, key-side route plus one group of every other route.
+    aes = setup["aes"]
+    aes_bits = np.array([nl.bits_from_bytes(bytes(k)) + nl.bits_from_bytes(bytes(p))
+                         for k, p in aes_bytes])                          # [256, 256]
+    wires = _columns(sk.encrypt_batch(aes_bits.reshape(-1), SEED + 500), ctx)
+    aes_futs = [ex.submit_netlist_expr(aes, [wires[r * 256:r * 256 + 128],
+                                             wires[r * 256 + 128:(r + 1) * 256]])
+                for r in range(AES_FLEET)]
+    enc_futs = [ex.submit_encrypt(int(b)) for b in enc_bits]
+    xa = _columns(sk.encrypt_batch(rng.integers(0, 2, 32 * 3), SEED + 510), ctx)
+    xb = _columns(sk.encrypt_batch(rng.integers(0, 2, 32 * 7), SEED + 511), ctx)
+    ga = [functools.reduce(operator.add, xa[3 * i:3 * i + 3]) for i in range(32)]  # 3 chunks
+    gb = [functools.reduce(operator.add, xb[7 * i:7 * i + 7]) for i in range(32)]  # 7 chunks
+    md_futs = [ex.submit_mul_decrypt(x, y) for x, y in zip(ga, gb)]
+    pct = Ciphertext(sk.encrypt_batch(rng.integers(0, 2, 129), SEED + 520), ctx)
+    perm_futs = [ex.submit_permute(pct, q) for q in setup["perms"]]
+    leaf = CiphertextBatch.stack(ga[:8])
+    circ = [lift(ga[i]) * gb[i] + ga[i + 1] for i in range(8)] + [lift(leaf) * leaf + ga[0]]
+    circ_futs = [ex.submit_decrypt_circuit(e) for e in circ]
+    g0 = ex.stats["group_dispatches"]
+    _timed(steps, "serve key-side flush", ex.flush)
+    groups = ex.stats["group_dispatches"] - g0
+
+    aes_out = [f.result()[0] for f in aes_futs]
+    require(nl.bytes_from_bits(aes_out[0]).hex() == FIPS197_C1[2],
+            f"AES request 0 {nl.bytes_from_bits(aes_out[0]).hex()} != FIPS-197 C.1")
+    for r in (1, 2, 3):
+        require(aes_out[r] == nl.eval_plain(aes, [aes_bits[r, :128], aes_bits[r, 128:]])[0],
+                f"AES request {r} != eval_plain")
+    packed_in = [int.from_bytes(np.packbits(aes_bits[:, j], bitorder="little").tobytes(),
+                                "little") for j in range(256)]
+    t_fold = time.perf_counter()
+    ref = nl.eval_plain_packed(aes, [packed_in[:128], packed_in[128:]], AES_FLEET)[0]
+    steps["eval_plain_packed (host, reference)"] = time.perf_counter() - t_fold
+    ref_bits = np.array([[(v >> r) & 1 for v in ref] for r in range(AES_FLEET)])
+    require(np.array_equal(np.array(aes_out), ref_bits), "AES fleet != eval_plain_packed")
+    enc = [f.result() for f in enc_futs]
+    require(np.array_equal(sk.decrypt_batch(CiphertextBatch.stack(enc)).cpu().numpy(),
+                           enc_bits), "serve encrypts do not decrypt to their bits")
+    ex2 = BatchExecutor(sk, seed=SEED)
+    again = [ex2.submit_encrypt(int(b)) for b in enc_bits]
+    require(all(torch.equal(x.wt, y.result().wt) for x, y in zip(enc, again)),
+            "serve encrypts are not reproducible from the seed")
+    for x, y, f in zip(ga, gb, md_futs):
+        prod, bit = f.result()
+        require(torch.equal(prod.wt, (x * y).wt) and bit == int(sk.decrypt(x * y)),
+                "submit_mul_decrypt != * and decrypt")
+    for q, f in zip(setup["perms"], perm_futs):
+        require(int(sk.apply_permutation(q).decrypt(f.result())) == int(sk.decrypt(pct)),
+                "submit_permute result does not decrypt under the rotated key")
+    want_circ = [int(sk.decrypt((ga[i] * gb[i]) + ga[i + 1])) for i in range(8)]
+    got_circ = [f.result() for f in circ_futs]
+    require(got_circ[:8] == want_circ, "submit_decrypt_circuit != materialized decrypt")
+    require(np.array_equal(got_circ[8], sk.decrypt_batch(leaf * leaf + CiphertextBatch.stack(
+        [ga[0]] * 8)).cpu().numpy()), "fleet submit_decrypt_circuit != materialized decrypt")
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    idle = [k for k in CIRCUIT_PATH if launches[k] == 0]
+    require(not idle, f"circuit path never launched: {idle}")
+    print(f"[circuit] BatchExecutor key-side flush: {AES_FLEET} aes128() requests "
+          f"(request 0 = FIPS-197 C.1 {FIPS197_C1[2]}; 1-3 = eval_plain; all = "
+          f"eval_plain_packed) + {len(enc_bits)} encrypts (decrypt and reproduce) + 32 "
+          f"mul_decrypt (3 x 7) + 8 permutes + 9 circuits in {groups} group launches")
+    print(f"[circuit] host wall per step (s): {json.dumps(steps)}; whole phase "
+          f"{seconds:.3f} s with its checks")
+    print(f"[circuit] launches {json.dumps({k: launches[k] for k in CIRCUIT_PATH})}; "
+          f"peak device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    return launches, steps
+
+
+def profile_path(label: str, run, warm: int) -> None:
+    """A path `warm` times warm (host wall), then once under torch.profiler:
     device busy time (the union of kernel intervals), idle share of the host
     wall, and the heaviest kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    def run():
-        rotation_path(ctx, indices, prod, p, perms, np.random.default_rng(1), dev)
-
     walls = []
-    for _ in range(3):
+    for _ in range(warm):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
@@ -443,13 +721,13 @@ def profile_rotation(ctx, indices, prod: Ciphertext, p: Permutation, perms: list
         n_us = by_name.setdefault(k.name[:60], [0, 0.0])
         n_us[0] += 1
         n_us[1] += k.time_range.end - k.time_range.start
-    print(f"[profile] rotation path host wall, 3 warm runs: "
+    print(f"[profile] {label} path host wall, {warm} warm runs: "
           f"{[round(w * 1e3, 3) for w in walls]} ms")
-    print("[profile] " + json.dumps({
+    print(f"[profile] {label} " + json.dumps({
         "wall_ms_profiled": wall_ms, "device_busy_ms": busy_us / 1e3,
         "idle_share_of_wall": 1 - busy_us / 1e3 / wall_ms, "kernel_launches": len(kern)}))
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:14]:
-        print(f"[profile] {us / 1e3:9.3f} ms  x{n:4d}  {name}")
+        print(f"[profile] {label} {us / 1e3:9.3f} ms  x{n:4d}  {name}")
 
 
 # ---------------------------------------------------------------------------
@@ -581,10 +859,97 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked) -> dict:
     return out
 
 
+def mode_timings(ctx, sk, gen, dev, card: str) -> dict:
+    """The multiply's unaligned and b-streamed modes: each against its plain
+    version, against the aligned mode at (nearly) equal product bytes, the
+    unaligned mode against the 4-byte-store walk it replaces and the
+    b-streamed mode against the aligned walk at its own shape; then the
+    streaming threshold sweep.  Keys are the TPU kernels' ids."""
+    m = sk.mask_words
+    w = ctx.words32
+    out = {}
+
+    def fresh(t1, t2, seed):
+        def one(t, s):
+            bits = torch.randint(0, 2, (t,), dtype=torch.int32, device=dev, generator=gen)
+            return sk.encrypt_batch(bits, s)
+        return [(one(t1, seed + 2 * k), one(t2, seed + 2 * k + 1)) for k in range(REPS)]
+
+    def forced(mode, count):
+        mask = m if count else None
+        name = "mul_decrypt" if count else "mul_chunks"
+        return lambda x, y: kernels._mul_cuda(name, x, y, mask, mode=mode)
+
+    def mul(count):
+        return (lambda x, y: kernels.mul_decrypt(x, y, m)) if count else kernels.mul_chunks
+
+    def plain(count):
+        return (lambda x, y: kernels.mul_decrypt_plain(x, y, m)) if count \
+            else kernels.mul_chunks_plain
+
+    def both(f, g):  # time f on the first operand pair against g on the second
+        return (lambda x, y, x2, y2: f(x, y)), (lambda x, y, x2, y2: g(x2, y2))
+
+    aligned_in = fresh(MAIN_T, MAIN_T, SEED + 700)              # 16,777,216 chunks
+    half_in = fresh(MAIN_T // 2, MAIN_T, SEED + 720)            # 2^23 chunks
+    rows = [("K10", "unaligned", CHAIN_T[0] * CHAIN_T[1], CHAIN_T[2], False, aligned_in),
+            ("K11a", "unaligned", *RAGGED_T, False, aligned_in),
+            ("K11b", "unaligned", *RAGGED_T, True, aligned_in),
+            ("K6a", "tiled", *STREAM_T, False, half_in),
+            ("K6b", "tiled", *STREAM_T, True, half_in)]
+    for tid, mode, t1, t2, count, ref_in in rows:
+        ins = fresh(t1, t2, SEED + 740)
+        require(kernels.mul_mode(w, t1, t2, True) == mode, f"{tid} shape not {mode}")
+        nbytes = w * t1 * t2 * 4
+        ms, pms = time_pair(mul(count), plain(count), ins)
+        other = "vec1" if mode == "unaligned" else "aligned"
+        ms2, other_ms = time_pair(mul(count), forced(other, count), ins)
+        paired = [a + b for a, b in zip(ins, ref_in)]
+        ms3, eq_ms = time_pair(*both(mul(count), forced("aligned", count)), paired)
+        rt1, rt2 = ref_in[0][0].shape[-1], ref_in[0][1].shape[-1]
+        out[tid] = {"shape": f"{t1}x{t2}", "ms": ms, "plain_ms": pms,
+                    f"{other}_same_shape_ms": other_ms, "against_it_ms": ms2,
+                    "aligned_equal_bytes_ms": eq_ms, "aligned_shape": f"{rt1}x{rt2}",
+                    "against_aligned_ms": ms3}
+        print(f"[time] {tid} {'mul_decrypt' if count else 'mul_chunks'} {mode} {t1}x{t2}: "
+              f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain {pms:.4f} ms; "
+              f"{other} walk at this shape {other_ms:.4f} ms against {ms2:.4f}; aligned "
+              f"{rt1}x{rt2} ({w * rt1 * rt2 * 4 / 1e9:.3f} GB) {eq_ms:.4f} ms against "
+              f"{ms3:.4f}; {card}")
+        del ins, paired
+    del aligned_in, half_in
+
+    # Small t2 at ~2^24 chunks: t2 = 1 and 3, against the 4-byte walk.
+    for t2 in (1, 3):
+        t1 = ((1 << 24) - 1) // t2
+        ins = fresh(t1, t2, SEED + 760)
+        ms, pms = time_pair(kernels.mul_chunks, kernels.mul_chunks_plain, ins)
+        ms2, v1 = time_pair(kernels.mul_chunks, forced("vec1", False), ins)
+        out[f"unaligned_t2_{t2}"] = {"shape": f"{t1}x{t2}", "ms": ms, "plain_ms": pms,
+                                     "vec1_same_shape_ms": v1, "against_it_ms": ms2}
+        print(f"[time] mul_chunks unaligned {t1}x{t2}: kernel {ms:.4f} ms "
+              f"({w * t1 * t2 * 4 / ms / 1e6:.1f} GB/s), plain {pms:.4f} ms; vec1 walk "
+              f"{v1:.4f} ms against {ms2:.4f}; {card}")
+        del ins
+
+    # Streaming threshold: b from 10.5 to 84 MB at t1 = 16, tiled against aligned.
+    sweep = {}
+    for e in (16, 17, 18, 19):
+        ins = fresh(16, 1 << e, SEED + 780)
+        ms, ams = time_pair(forced("tiled", False), forced("aligned", False), ins)
+        sweep[f"b={w * 4 << e}"] = {"tiled_ms": ms, "aligned_ms": ams}
+        print(f"[time] threshold sweep 16x2^{e} (b {w * 4 << e >> 20} MiB): tiled "
+              f"{ms:.4f} ms, aligned walk {ams:.4f} ms; {card}")
+        del ins
+    out["threshold_sweep"] = sweep
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile phase 4b (the key-rotation path)")
+                        help="also profile phases 4b and 4c (the key-rotation and the "
+                             "circuit paths)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an "
@@ -616,9 +981,10 @@ def main() -> int:
     pgen = torch.Generator().manual_seed(SEED)  # permutations are drawn on the host
 
     # Phase 3: kernels vs plain.
-    errs = dict.fromkeys(KERNELS, 0)
+    errs = dict.fromkeys([name for _, name, _, _ in KERNELS], 0)
     check_kernels(ctx, sk, gen, dev, errs)
     check_batched(ctx, sk, gen, dev, errs)
+    check_modes(ctx, sk, gen, dev, errs)
     check_benes(gen, pgen, dev, errs)
     torch.cuda.synchronize()
 
@@ -639,22 +1005,36 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats(dev)
     rot_launches = rotation_path(ctx, indices, prod, p, perms, rng, dev)
     if args.profile:
-        profile_rotation(ctx, indices, prod, p, perms, dev)
+        profile_path("rotation", lambda: rotation_path(
+            ctx, indices, prod, p, perms, np.random.default_rng(1), dev), warm=3)
     del prod
+    torch.cuda.empty_cache()
+
+    # Phase 4c: the circuit and serving path.  Netlists and plans are set-up.
+    setup = circuit_setup(ctx, pgen)
+    torch.cuda.reset_peak_memory_stats(dev)
+    circ_launches, _ = circuit_path(ctx, indices, setup, rng, dev)
+    if args.profile:
+        profile_path("circuit", lambda: circuit_path(
+            ctx, indices, setup, np.random.default_rng(2), dev), warm=1)
     torch.cuda.empty_cache()
 
     # Phase 5: timings.
     times = timings(ctx, sk, gen, dev, smi, p, stacked)
+    times.update(mode_timings(ctx, sk, gen, dev, smi))
     torch.cuda.synchronize()
+    extra = ("unaligned_t2_1", "unaligned_t2_3", "threshold_sweep")
+    print(f"[time] mode timings {json.dumps({k: times[k] for k in extra})}")
 
     rows = []
-    for name, (src, rep) in KERNELS.items():
+    paths = (("main", main_launches), ("rotation", rot_launches), ("circuit", circ_launches))
+    for tid, name, src, rep in KERNELS:
         by_path = {path: launches.get(name, 0) + launches.get(name + "_batched", 0)
-                   for path, launches in (("main", main_launches), ("rotation", rot_launches))}
+                   for path, launches in paths}
         rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "name": name, "tpu_kernel": tid, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": errs[name], **times[name],
+            "max_abs_err": errs[name], **times[tid if tid in times else name],
         })
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

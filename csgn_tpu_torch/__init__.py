@@ -11,16 +11,19 @@ the CPU run the plain torch versions of the kernels; tensors on a CUDA device
 run the kernels in ``csrc/``, built by nvcc at first use.
 """
 
+from csgn_tpu_torch import models
 from csgn_tpu_torch.batch import CiphertextBatch
 from csgn_tpu_torch.ciphertext import Ciphertext
+from csgn_tpu_torch.circuit import CtExpr
 from csgn_tpu_torch.context import Context
 from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.plaintext import Plaintext
 from csgn_tpu_torch.secret_key import SecretKey
+from csgn_tpu_torch.serve import BatchExecutor
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Context", "Plaintext", "SecretKey", "Ciphertext", "CiphertextBatch", "Permutation",
-    "__version__",
+    "CtExpr", "BatchExecutor", "models", "__version__",
 ]

@@ -4,7 +4,8 @@
 ``np.asarray(Ciphertext.wt)`` as uint32 ``[W, C]``); these helpers build the
 port's objects from it, bit-identically, without importing either JAX or
 `csgn_tpu`.  Words cross as ``torch.from_numpy(a.view(np.int32))`` and come
-back as ``.numpy().view(np.uint32)``.
+back as ``.numpy().view(np.uint32)``; a netlist crosses as its Bristol text
+(``Netlist.to_text()``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from csgn_tpu_torch.batch import CiphertextBatch
 from csgn_tpu_torch.ciphertext import Ciphertext
 from csgn_tpu_torch.context import Context
 from csgn_tpu_torch.layout import words_from_numpy, words_to_numpy
+from csgn_tpu_torch.models.netlist import Netlist
 from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.secret_key import SecretKey
 
@@ -23,6 +25,7 @@ __all__ = [
     "ciphertext_from_numpy",
     "ciphertext_batch_from_numpy",
     "permutation_from_numpy",
+    "netlist_from_text",
     "words_from_numpy",
     "words_to_numpy",
 ]
@@ -47,3 +50,8 @@ def ciphertext_batch_from_numpy(words_u32_bwc: np.ndarray, ctx: Context,
 def permutation_from_numpy(perm: np.ndarray) -> Permutation:
     """The port's permutation of the same array (e.g. ``p.perm``)."""
     return Permutation(np.asarray(perm))
+
+
+def netlist_from_text(text: str) -> Netlist:
+    """The port's netlist of the same gates (e.g. a JAX ``Netlist.to_text()``)."""
+    return Netlist.parse(text)

@@ -55,6 +55,15 @@ LAUNCHES = {
     "mul_decrypt_batched": 0,
     "decrypt_parity_batched": 0,
     "chunk_matches_batched": 0,
+    # the multiply's unaligned and b-streamed modes (csrc/mul.cu)
+    "mul_chunks_unaligned": 0,
+    "mul_decrypt_unaligned": 0,
+    "mul_chunks_tiled": 0,
+    "mul_decrypt_tiled": 0,
+    "mul_chunks_unaligned_batched": 0,
+    "mul_decrypt_unaligned_batched": 0,
+    "mul_chunks_tiled_batched": 0,
+    "mul_decrypt_tiled_batched": 0,
     "apply_benes": 0,
     "apply_benes_batch": 0,
     "apply_benes_decrypt": 0,
@@ -63,8 +72,8 @@ LAUNCHES = {
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _SIGNATURES = {
-    # a, b, mask, out, count, batch, w, t1, t2, vec, stream
-    "csgn_mul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # a, b, mask, out, count, scratch, batch, w, t1, t2, mode, stream
+    "csgn_mul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # words, mask, out, batch, w, c, per_chunk, vec, stream
     "csgn_decrypt": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, masks, sched, key, out, count, batch, w, c, wp, stages, w_net, plan_stride, stream

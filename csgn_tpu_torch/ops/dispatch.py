@@ -2,11 +2,30 @@
 
 The JAX package routes by backend, size and lane alignment (flat / tiled /
 grouped / ragged / j-major kernels, `MUL_PALLAS_MIN_OUT`) because Mosaic
-needs 128-lane-aligned blocks and VMEM-resident operands.  The CUDA kernels
-write the canonical i-major product for any shape, so here the route is the
+needs 128-lane-aligned blocks and VMEM-resident operands.  The CUDA multiply
+writes the canonical i-major product for any shape, so here the route is the
 device alone: a CUDA tensor goes to the kernel, a CPU tensor to the plain
 torch version.  Which route served each call is counted in `op_metrics()`
-as ``dispatch.<op>.<cuda|plain>``.
+as ``dispatch.<op>.<cuda|plain>``; on the card the multiply then picks one
+of csrc/mul.cu's modes from the shapes (`kernels.mul_mode`, counted as
+``<wrapper>.<mode>``).  The JAX route names map onto those modes:
+
+  ======================================================  ===================
+  JAX route (csgn_tpu/ops/dispatch.py `_path`)            CUDA mode
+  ======================================================  ===================
+  ``mul.flat``, ``mul_dec.flat``, ``*.b_flat``            aligned (K1/K2)
+  ``mul.tiled``, ``mul_dec.tiled``, ``*.b_tiled``         tiled (b > 25 MB) or
+                                                          aligned
+  ``mul.grouped``, ``mul_dec.grouped``                    unaligned
+  ``mul.ragged``, ``mul_dec.ragged``, ``*.b_ragged``      unaligned (no pads),
+                                                          tiled for a large b
+  ``*.jm_flat``, ``*.jm_tiled``, ``*.jm_ragged``,         the canonical mode
+  ``*.jm_xla`` (j-major: operands swapped, order tag)     of the same shape
+  ``mul.xla``, ``mul_dec.xla``, ``*.b_xla``               the mode of the shape
+  ======================================================  ===================
+
+There are no ``*_auto`` or ``mul_chunks_jmajor`` counterparts: every product
+is canonical, with exactly t1*t2 chunks.
 
 Batched ops take ``[B, W, C]`` words and always return canonical i-major
 order with no pad chunks (the JAX package's `mul_chunks_batched` may return

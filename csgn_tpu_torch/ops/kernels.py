@@ -5,6 +5,14 @@ torch versions.
     csgn_tpu/ops/kernels.py `mul_chunks_pallas`).
   * K2 `mul_decrypt` — K1 plus the product's decrypt count in the same pass
     (csrc/mul.cu with the count on; replaces `mul_decrypt_pallas`).
+  * The same two wrappers launch csrc/mul.cu in one of three modes, picked
+    by `mul_mode` from the shapes and the output's alignment: "aligned"
+    (K1/K2), "unaligned" (any t1*t2; does the job of `mul_chunks_pallas_grouped`
+    K10, `mul_chunks_pallas_tiled_ragged` K11a and
+    `mul_decrypt_pallas_tiled_ragged` K11b, with no pad chunks) and
+    "tiled", b streamed tile by tile when b is larger than
+    `B_STREAM_BYTES` (`mul_chunks_pallas_tiled` K6a, `mul_decrypt_pallas_tiled`
+    K6b).  Every mode writes the canonical i-major product.
   * K3 `decrypt_parity` / `chunk_matches` — streaming eq-all against the key
     mask, as a count or per chunk (csrc/decrypt.cu; replaces
     `decrypt_parity_pallas`).
@@ -18,7 +26,10 @@ CUDA tensor launches the kernel or raises.  There is no fallback and no size
 threshold.  Counts come back as int64 device tensors and parities as
 ``count & 1``; nothing here synchronizes with the host.  Each launch adds one
 to ``LAUNCHES[<wrapper name>]``, or to ``LAUNCHES[<wrapper name>_batched]``
-for batched words.
+for batched words; the multiply's unaligned and tiled modes count under
+``<wrapper name>_unaligned`` and ``<wrapper name>_tiled`` (``_batched``
+appended for batches), and each multiply launch also bumps
+``op_metrics()`` counter ``<wrapper name>.<mode>``.
 """
 
 from __future__ import annotations
@@ -27,9 +38,12 @@ import torch
 
 from csgn_tpu_torch.ops import core
 from csgn_tpu_torch.ops._build import LAUNCHES, check, grids, lib, ptr, stream_of
+from csgn_tpu_torch.utils.metrics import op_metrics
 
 __all__ = [
     "LAUNCHES",
+    "B_STREAM_BYTES",
+    "mul_mode",
     "mul_chunks",
     "mul_chunks_plain",
     "mul_decrypt",
@@ -99,20 +113,58 @@ def _counted(name: str, words: torch.Tensor) -> str:
     return name if words.dim() == 2 else name + "_batched"
 
 
-def _mul_cuda(name: str, a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor | None):
+# b (one element's [W, t2] operand) larger than this streams tile by tile:
+# the i-major walk reads all of b once per a-column, free while b stays in
+# the H100's 50 MB L2.  On an H100 (t1 = 16) the two walks broke even at
+# b = 20 MiB and the streamed one took 22 % less time at 40 MiB.
+B_STREAM_BYTES = 25 << 20
+
+# Mode -> csgn_mul's mode code.  "vec1" (the aligned walk with 4-byte stores,
+# what an unaligned product took before the unaligned mode) is never picked;
+# it stays reachable through `_mul_cuda` only to be timed against.
+_MODE_CODES = {"vec1": 0, "aligned": 1, "unaligned": 2, "tiled": 3}
+
+
+def mul_mode(w: int, t1: int, t2: int, base_aligned: bool) -> str:
+    """The csrc/mul.cu mode for a [W,t1] x [W,t2] product (per element of a
+    batch) whose output starts at a 16-byte-aligned address iff
+    `base_aligned`:
+
+      * "tiled" when b holds more than `B_STREAM_BYTES`;
+      * "aligned" when every row start r*t1*t2 is a multiple of 4 words and
+        the base is aligned (then every element base e*W*t1*t2 of a batch is
+        too, so the batch size never changes the mode);
+      * "unaligned" otherwise.
+    """
+    if w * t2 * 4 > B_STREAM_BYTES:
+        return "tiled"
+    if base_aligned and (t1 * t2) % 4 == 0:
+        return "aligned"
+    return "unaligned"
+
+
+def _mul_cuda(name: str, a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor | None,
+              mode: str | None = None):
+    """Launch csrc/mul.cu in `mode` (default: `mul_mode`'s pick)."""
     *lead, w, t1 = a.shape
     t2 = b.shape[-1]
     out = torch.empty((*lead, w, t1 * t2), dtype=torch.int32, device=a.device)
     count = None if mask is None else torch.zeros(lead, dtype=torch.int64, device=a.device)
     if out.numel():
-        vec = 4 if (t1 * t2) % 4 == 0 else 1   # out is fresh, so 16-byte aligned
+        if mode is None:
+            mode = mul_mode(w, t1, t2, out.data_ptr() % 16 == 0)
         batch = lead[0] if lead else 1
+        ragged = mode in ("unaligned", "tiled")
+        scratch = None
+        if mask is not None and ragged:
+            scratch = torch.zeros((batch, 3), dtype=torch.int64, device=a.device)
         with torch.cuda.device(a.device):
             check(name, lib().csgn_mul(
-                ptr(a), ptr(b), ptr(mask), ptr(out), ptr(count), batch, w, t1, t2, vec,
-                stream_of(a)
+                ptr(a), ptr(b), ptr(mask), ptr(out), ptr(count), ptr(scratch), batch, w, t1, t2,
+                _MODE_CODES[mode], stream_of(a)
             ))
-        LAUNCHES[_counted(name, a)] += grids(batch)
+        LAUNCHES[_counted(f"{name}_{mode}" if ragged else name, a)] += grids(batch)
+        op_metrics().count(f"{name}.{mode}")
     return out, count
 
 

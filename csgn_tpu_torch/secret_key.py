@@ -23,6 +23,8 @@ import torch
 from csgn_tpu_torch import layout
 from csgn_tpu_torch.batch import CiphertextBatch
 from csgn_tpu_torch.ciphertext import Ciphertext
+from csgn_tpu_torch.circuit import collect_leaves, fold_many, lift, pack_fleet_bits, \
+    unpack_fleet_bits
 from csgn_tpu_torch.context import Context
 from csgn_tpu_torch.ops import core, dispatch
 from csgn_tpu_torch.ops.encrypt_kernels import encrypt_bits_counter
@@ -204,6 +206,85 @@ class SecretKey:
             if acc == 0:
                 break
         return Plaintext(acc)
+
+    # -- circuits (csgn_tpu_torch.circuit) -----------------------------------
+
+    def _leaf_bits(self, ct):
+        """Decrypt one expr leaf: int for a Ciphertext, uint8[B] for a
+        `CiphertextBatch` (one batched launch)."""
+        if isinstance(ct, CiphertextBatch):
+            return self.decrypt_batch(ct).cpu().numpy().astype(np.uint8)
+        return int(self.decrypt(ct))
+
+    def decrypt_batches_packed(self, cbs) -> list[int]:
+        """Decrypt many `CiphertextBatch`es -> `pack_fleet_bits`-packed ints
+        (instance i at bit i), in input order.
+
+        Same-shape batches concatenate into ONE `decrypt_batch` launch — the
+        shared leaf-decrypt engine for fleet circuit readouts
+        (`decrypt_circuits`, the executor's key-side netlist route)."""
+        for cb in cbs:
+            if cb.ctx != self.ctx:
+                raise ValueError("ciphertext context mismatch")
+        groups: dict[tuple, list[int]] = {}
+        for i, cb in enumerate(cbs):
+            groups.setdefault(tuple(cb.wt.shape), []).append(i)
+        packed = [0] * len(cbs)
+        for idxs in groups.values():
+            stacked = CiphertextBatch(torch.cat([cbs[i].wt for i in idxs]), self.ctx)
+            vals = self.decrypt_batch(stacked).cpu().numpy()
+            b = cbs[idxs[0]].batch
+            for gi, i in enumerate(idxs):
+                packed[i] = pack_fleet_bits(vals[gi * b : (gi + 1) * b])
+        return packed
+
+    def decrypt_circuit(self, expr) -> "Plaintext | np.ndarray":
+        """Decrypt a +/* DAG of ciphertexts WITHOUT materializing it.
+
+        Dec is a ring homomorphism (reference src/SecretKey.cpp:126-146):
+        Dec(a+b) = Dec(a)^Dec(b), Dec(a*b) = Dec(a)&Dec(b).  Cost is
+        O(sum of distinct leaf chunks) — each leaf decrypts once (memoized),
+        bits fold through the DAG on the host.  Accepts a `circuit.CtExpr` or
+        a plain Ciphertext.  DAGs over `CiphertextBatch` leaves fold the whole
+        B-fleet at once and return uint8[B] instead of a Plaintext.
+        """
+        e = lift(expr)
+        bit = e.fold(self._leaf_bits)
+        if e.batch is not None:
+            return unpack_fleet_bits(bit, e.batch)
+        return Plaintext(bit)
+
+    def decrypt_circuits(self, exprs) -> "list[Plaintext | np.ndarray]":
+        """Decrypt MANY +/* DAGs sharing leaves with batched leaf decrypts.
+
+        Collects the distinct leaves across ALL the DAGs, decrypts each
+        same-shape group in ONE batched launch (`decrypt_batch`), and folds
+        every DAG on the host from the shared bit table, with one memo
+        across the DAGs (`circuit.fold_many`).  Bit-exact to per-expr
+        `decrypt_circuit`.  Fleet DAGs come back as uint8[B] arrays.
+        """
+        exprs = [lift(e) for e in exprs]
+        leaves = collect_leaves(exprs)
+        for ct in leaves:
+            if ct.ctx != self.ctx:
+                raise ValueError("ciphertext context mismatch")
+        scalars = [ct for ct in leaves if isinstance(ct, Ciphertext)]
+        fleets = [ct for ct in leaves if isinstance(ct, CiphertextBatch)]
+        bits: dict[int, int] = {}
+        groups: dict[tuple, list[Ciphertext]] = {}
+        for ct in scalars:
+            groups.setdefault(tuple(ct.wt.shape), []).append(ct)
+        for cts in groups.values():
+            batch = CiphertextBatch(torch.stack([c.wt for c in cts]), self.ctx)
+            for c, v in zip(cts, self.decrypt_batch(batch).tolist()):
+                bits[id(c)] = int(v)
+        for cb, packed in zip(fleets, self.decrypt_batches_packed(fleets)):
+            bits[id(cb)] = packed
+        vals = fold_many(exprs, lambda ct: bits[id(ct)])
+        return [
+            unpack_fleet_bits(v, e.batch) if e.batch is not None else Plaintext(v)
+            for e, v in zip(exprs, vals)
+        ]
 
     def recrypt(self, ciphertext: Ciphertext, seed: int) -> Ciphertext:
         """Key-side re-encryption: decrypt, then a fresh 1-chunk ciphertext

@@ -133,8 +133,12 @@ def test_launch_counters_count_kernel_launches(dev):
     b.apply_permutations([p, p.inverse()])
     benes_kernels.apply_benes_decrypt(c.wt, p.benes_plan(), sk.apply_permutation(p).mask_words)
     kernels.chunk_matches(b.wt, sk.mask_words)
+    # Every product above has t1*t2 % 4 == 0, so the multiply's aligned mode
+    # serves it; the unaligned and tiled modes count under their own keys.
     for name in before:
-        assert kernels.LAUNCHES[name] == before[name] + 1, name
+        want = before[name] + (0 if name.endswith(("_unaligned", "_tiled", "_unaligned_batched",
+                                                    "_tiled_batched")) else 1)
+        assert kernels.LAUNCHES[name] == want, name
 
 
 def _perm_words(n, lead, chunks, seed, dev):
@@ -237,5 +241,152 @@ def test_batches_past_the_grid_limit(dev):
     p = Permutation(np.random.default_rng(3).permutation(SMALL.n))
     got = benes_kernels.apply_benes(prod, p.benes_plan())
     assert torch.equal(got, benes_kernels.apply_benes_plain(prod, p.benes_plan()))
-    for name in ("mul_decrypt_batched", "decrypt_parity_batched", "apply_benes"):
+    # 2 x 3 = 6 product chunks per element: the multiply's unaligned mode.
+    for name in ("mul_decrypt_unaligned_batched", "decrypt_parity_batched", "apply_benes"):
         assert kernels.LAUNCHES[name] == before[name] + 2, name
+
+
+# ---------------------------------------------------------------------------
+# The multiply's unaligned and b-streamed (tiled) modes
+# ---------------------------------------------------------------------------
+
+ODD_W = Context(150, 5)   # W = 6: element bases e*6*t1*t2 of a batch leave the 16-byte grid
+
+
+def _check_mode(a, b, m, mode, batched=False):
+    """Product and count of `mode` against the plain versions; the launch
+    lands on the mode's own counter."""
+    suffix = f"_{mode}" + ("_batched" if batched else "")
+    before = dict(kernels.LAUNCHES)
+    want = kernels.mul_chunks_plain(a, b)
+    assert torch.equal(kernels.mul_chunks(a, b), want)
+    prod, count = kernels.mul_decrypt(a, b, m, return_count=True)
+    _, want_count = kernels.mul_decrypt_plain(a, b, m, return_count=True)
+    assert torch.equal(prod, want)
+    assert torch.equal(count, want_count)
+    _, parity = kernels.mul_decrypt(a, b, m)
+    assert torch.equal(parity, want_count & 1)
+    assert kernels.LAUNCHES["mul_chunks" + suffix] == before["mul_chunks" + suffix] + 1
+    assert kernels.LAUNCHES["mul_decrypt" + suffix] == before["mul_decrypt" + suffix] + 2
+    return count
+
+
+@pytest.mark.parametrize("t1,t2", [(1, 1), (3, 1), (7, 3), (5, 37), (1, 5), (9, 1021),
+                                   (3, 1030), (13, 16411)])
+def test_unaligned_mode_matches_plain(dev, t1, t2):
+    sk = _key(CTX, t1 + t2, dev)
+    a = _words(CTX, t1, t1, dev, sk.mask, forced=range(0, t1, 2))
+    b = _words(CTX, t2, t2 + 7, dev, sk.mask, forced=range(0, t2, 3))
+    assert kernels.mul_mode(CTX.words32, t1, t2, True) == "unaligned"
+    count = _check_mode(a, b, sk.mask_words, "unaligned")
+    assert int(count) >= len(range(0, t1, 2)) * len(range(0, t2, 3))
+
+
+@pytest.mark.parametrize("t1,t2", [(1, 7), (3, 8), (5, 1021), (2, 4096), (7, 2049)])
+def test_tiled_mode_matches_plain(dev, monkeypatch, t1, t2):
+    """b streamed tile by tile, aligned and unaligned products; the
+    threshold is lowered so small shapes take the mode."""
+    monkeypatch.setattr(kernels, "B_STREAM_BYTES", 64)
+    sk = _key(CTX, t1 * t2, dev)
+    a = _words(CTX, t1, t1, dev, sk.mask, forced=range(1, t1, 2) if t1 > 1 else (0,))
+    b = _words(CTX, t2, t2 + 1, dev, sk.mask, forced=range(0, t2, 5))
+    assert kernels.mul_mode(CTX.words32, t1, t2, True) == "tiled"
+    _check_mode(a, b, sk.mask_words, "tiled")
+
+
+def test_tiled_mode_past_the_threshold(dev):
+    """b just past `B_STREAM_BYTES` at W = 40, unaligned (t1*t2 odd)."""
+    t2 = kernels.B_STREAM_BYTES // (4 * CTX.words32) + 1
+    sk = _key(CTX, 5, dev)
+    a = _words(CTX, 3, 3, dev, sk.mask, forced=(0, 2))
+    b = _words(CTX, t2, 4, dev, sk.mask, forced=range(0, t2, 1001))
+    assert kernels.mul_mode(CTX.words32, 3, t2, True) == "tiled" and (3 * t2) % 4
+    _check_mode(a, b, sk.mask_words, "tiled")
+
+
+@pytest.mark.parametrize("mode", ["unaligned", "tiled"])
+@pytest.mark.parametrize("batch,t1,t2", [(2, 1, 1), (5, 3, 7), (7, 13, 37), (3, 1, 1021)])
+def test_batched_modes_with_misaligned_element_bases(dev, monkeypatch, mode, batch, t1, t2):
+    """W = 6 and odd t1*t2: element e's base e*W*t1*t2 is off the 16-byte
+    grid for odd e; each element equals its own 2-D product and count."""
+    if mode == "tiled":
+        monkeypatch.setattr(kernels, "B_STREAM_BYTES", 4 * ODD_W.words32 * t2 - 1)
+    sk = _key(ODD_W, batch * t2, dev)
+    a = torch.stack([_words(ODD_W, t1, 10 * e + 1, dev, sk.mask, forced=range(e % 2, t1, 2))
+                     for e in range(batch)])
+    b = torch.stack([_words(ODD_W, t2, 10 * e + 2, dev, sk.mask, forced=range(0, t2, 3))
+                     for e in range(batch)])
+    assert kernels.mul_mode(ODD_W.words32, t1, t2, True) == mode
+    count = _check_mode(a, b, sk.mask_words, mode, batched=True)
+    for e in range(batch):
+        assert int(count[e]) == int(kernels.mul_decrypt(a[e], b[e], sk.mask_words,
+                                                        return_count=True)[1])
+
+
+@pytest.mark.parametrize("mode", ["unaligned", "tiled"])
+def test_mode_batches_past_the_grid_limit(dev, monkeypatch, mode):
+    """65538 elements: two grids, both counted; the last element's count
+    (its forced match removed) is 0."""
+    if mode == "tiled":
+        monkeypatch.setattr(kernels, "B_STREAM_BYTES", 4 * SMALL.words32 * 3 - 1)
+    batch = 65535 + 3
+    sk = _key(SMALL, 4, dev)
+    m = sk.mask_words
+    a = torch.stack([_words(SMALL, 1, 1, dev, sk.mask, forced=(0,))] * batch)
+    a[-1, :, 0] = 0
+    b = torch.stack([_words(SMALL, 3, 2, dev, sk.mask, forced=(1,))] * batch)
+    before = dict(kernels.LAUNCHES)
+    prod, count = kernels.mul_decrypt(a, b, m, return_count=True)
+    assert torch.equal(prod, kernels.mul_chunks_plain(a, b))
+    assert torch.equal(count, kernels.mul_decrypt_plain(a, b, m, return_count=True)[1])
+    assert int(count[-1]) == 0 < int(count[-2])
+    assert torch.equal(kernels.mul_chunks(a, b), prod)
+    for name in (f"mul_decrypt_{mode}_batched", f"mul_chunks_{mode}_batched"):
+        assert kernels.LAUNCHES[name] == before[name] + 2, name
+
+
+def test_vec1_walk_still_matches_plain(dev):
+    """The aligned walk with 4-byte stores (timed against the unaligned
+    mode by chip_smoke.py) on an unaligned product."""
+    sk = _key(CTX, 9, dev)
+    a = _words(CTX, 5, 1, dev, sk.mask, forced=(0,))
+    b = _words(CTX, 7, 2, dev, sk.mask, forced=(3,))
+    prod, count = kernels._mul_cuda("mul_decrypt", a, b, sk.mask_words, mode="vec1")
+    assert torch.equal(prod, kernels.mul_chunks_plain(a, b))
+    assert int(count) == int(kernels.mul_decrypt_plain(a, b, sk.mask_words,
+                                                       return_count=True)[1]) == 1
+
+
+def test_chain_circuit_and_serve_on_card_equal_cpu(dev):
+    """mul_chain(_decrypt), a fleet DAG readout and the executor's routes on
+    the card give the CPU path's words and bits."""
+    from csgn_tpu_torch import BatchExecutor, pipeline
+    from csgn_tpu_torch.circuit import lift
+    from csgn_tpu_torch.models import netlist as nl
+
+    idx = np.random.default_rng(2).choice(CTX.n, CTX.d, replace=False)
+    out = {}
+    for device in ("cpu", dev):
+        sk = SecretKey(CTX, idx, device)
+        cts = [Ciphertext(sk.encrypt_batch(b, 20 + k), CTX)
+               for k, b in enumerate([[1, 0, 0], [1, 1, 1, 0, 0], [0, 1, 0]])]
+        chain, bit = pipeline.mul_chain_decrypt(cts, sk)
+        fleet = CiphertextBatch.stack([cts[0], cts[2]])
+        dag = sk.decrypt_circuit(lift(fleet) * fleet + cts[1])
+        ex = BatchExecutor(sk, seed=4)
+        add = ex.submit_netlist(nl.adder(2), [[cts[0], cts[1]], [cts[2], cts[0]]])
+        enc = ex.submit_encrypt(1)
+        md = ex.submit_mul_decrypt(cts[0], cts[1])
+        out[str(device)] = (pipeline.mul_chain(cts).to_u64(), chain.to_u64(), int(bit),
+                            dag.tolist(), [c.to_u64() for c in add.result()[0]],
+                            enc.result().to_u64(), md.result()[0].to_u64(), md.result()[1])
+    cpu, gpu = out["cpu"], out[str(dev)]
+    for x, y in zip(cpu, gpu):
+        if isinstance(x, list) and x and isinstance(x[0], np.ndarray):
+            for u, v in zip(x, y):
+                np.testing.assert_array_equal(u, v)
+        elif isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y
+    assert cpu[2] == 1 and cpu[7] == 1

@@ -32,7 +32,11 @@ def test_import_pulls_in_no_jax():
         "import sys, csgn_tpu_torch, csgn_tpu_torch.convert, csgn_tpu_torch.ops.dispatch, "
         "csgn_tpu_torch.ops.encrypt_kernels, csgn_tpu_torch.utils, csgn_tpu_torch.batch, "
         "csgn_tpu_torch.permutation, csgn_tpu_torch.ops.benes_kernels, "
-        "csgn_tpu_torch.ops.permute_benes; "
+        "csgn_tpu_torch.ops.permute_benes, csgn_tpu_torch.pipeline, csgn_tpu_torch.circuit, "
+        "csgn_tpu_torch.serve, csgn_tpu_torch.models, csgn_tpu_torch.models.netlist, "
+        "csgn_tpu_torch.models.aes, csgn_tpu_torch.models.sha256, "
+        "csgn_tpu_torch.models.circuits, csgn_tpu_torch.models.linear, "
+        "csgn_tpu_torch.models.lookup; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'csgn_tpu.')) "
         "or m == 'csgn_tpu'); print(bad); sys.exit(1 if bad else 0)"
     )
