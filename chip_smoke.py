@@ -17,7 +17,9 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
   3. each kernel against its plain torch version on the card, bit-exact, at
      small and ragged shapes and at the main path's full size: K1-K4, the
      Beneš kernels K8/K9/K12 at n in {20, 100, 1247} and up to 2^20 chunks,
-     and K1-K3 on batched [B, W, C] operands;
+     K1-K3 on batched [B, W, C] operands, the Philox encrypt K7 and its
+     stream dump K13 at batches {1, 255, 257, 2^22}, W in {3, 40, 128} and
+     d in {4, 16, 32}, and the write anchor K5 against torch.full;
   4. the main path through the public API at Context(1247, 16): key, two
      4096-bit encrypt batches, decrypt_batch / decrypt, the fused
      mul_and_decrypt over the 16.7 M-chunk product, ``*`` and ``+``; every
@@ -38,10 +40,24 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      route; request 0 is FIPS-197 C.1), with groups of every other submit_*
      route; the multiply's unaligned and b-streamed modes must be launched
      during it;
+  4d. the entry points at Context(1247, 16), each on its default device (the
+     card): every `python -m csgn_tpu_torch.cli` command in-process (demo,
+     selftest of 2^22 bits, timings at batch 4096, info, flagship), a 2^22-bit
+     Philox encrypt decrypted, a fused product of two 4096-bit Philox
+     batches, a checkpoint round trip of a 4099 x 37 chain product with its
+     key and a permutation through both checkpoint formats, and the encrypt
+     statistics (`csgn_tpu_torch.tools.enc_stats`) at Context(4095, 32) over
+     2^20 columns; every kernel of this path must be launched during it;
   5. timings of each kernel and its plain version at the paths' shapes
      (CUDA events, warm-up, median of distinct inputs; nothing is asserted);
      the multiply's modes also against the aligned mode and today's
-     4-byte-store walk, and a sweep of b's size for the streaming threshold.
+     4-byte-store walk, and a sweep of b's size for the streaming threshold;
+     K7 against K4, and the write anchor K5 in turns with K1 and with K2
+     (median per-pair ratio anchor ms / kernel ms, the JAX bench's
+     value_vs_anchor).  Every row gets its bound (the larger of its bytes
+     over 3.35 TB/s and its integer operations over 132 SMs x 64 INT32 lanes
+     x the SM clock nvidia-smi reports as its maximum) and, where one
+     PyTorch call computes the same function, that call's time (library_ms).
 
 Then one JSON line with the kernels, and last the device JSON line.  Any
 failure raises and exits non-zero with no result; so does a machine without
@@ -54,6 +70,8 @@ import argparse
 import functools
 import json
 import operator
+import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -63,13 +81,15 @@ import numpy as np
 import torch
 
 from csgn_tpu_torch import (BatchExecutor, Ciphertext, CiphertextBatch, Context, Permutation,
-                            SecretKey, models)
+                            RunConfig, SecretKey, cli, models)
+from csgn_tpu_torch import io as cio
 from csgn_tpu_torch.circuit import lift
-from csgn_tpu_torch.layout import words_to_numpy
+from csgn_tpu_torch.layout import bit_positions_to_mask, words_from_numpy, words_to_numpy
 from csgn_tpu_torch.models import netlist as nl
 from csgn_tpu_torch.ops import _build, benes_kernels, core, encrypt_kernels, kernels
 from csgn_tpu_torch.ops import permute_benes as pb
 from csgn_tpu_torch.pipeline import mul_chain, mul_chain_decrypt
+from csgn_tpu_torch.tools import enc_stats
 
 SEED = 20261016
 M32 = 0xFFFFFFFF
@@ -88,6 +108,25 @@ ADDERS, ADDER_BITS = 64, 16       # materialized netlist fleet
 AES_FLEET = 256                   # key-side netlist fleet
 FIPS197_C1 = ("000102030405060708090a0b0c0d0e0f", "00112233445566778899aabbccddeeff",
               "69c4e0d86a7b0430d8cdb78070b4c55a")
+
+# Phase 3's Philox grid, phase 4d's statistics size (the JAX tool's) and
+# scratch directory (gitignored).
+PHILOX_WS, PHILOX_DS, PHILOX_BATCHES = (3, 40, 128), (4, 16, 32), (1, 255, 257, ENC_BATCH)
+STATS_CTX, STATS_BATCH, STATS_SEED = Context(4095, 32), 1 << 20, 424242
+WORKDIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+
+# Bounds: HBM at the H100 SXM's published
+# 3.35 TB/s; integer work at 132 SMs x 64 INT32 lanes x the SM clock.
+# Operations are counted per 32-bit lane as the algorithm needs them: a
+# threefry2x32 round 3 (add, funnel shift, xor) and a key injection 2, so
+# 72 a call; a Philox-4x32 round 4 (two 32x32 -> 64 multiplies, each one
+# IMAD.WIDE giving mul.hi and mul.lo, and two three-input xors; the key bumps
+# are uniform), so 40 a call; 3 per word of the fix-up.  A generator call is
+# counted once per stream row pair (threefry) or group (Philox), however
+# often a kernel evaluates it again.
+HBM_BYTES_PER_S = 3.35e12
+SMS, INT32_LANES = 132, 64
+THREEFRY_OPS, PHILOX_OPS, FIXUP_OPS = 72, 40, 3
 
 MUL_CU = "csgn_tpu_torch/csrc/mul.cu"
 # One row per Pallas function: (TPU kernel, launch key of the kernel or mode
@@ -111,6 +150,10 @@ KERNELS = [
     ("K10", "mul_chunks_unaligned", MUL_CU, "csgn_tpu/ops/kernels.py:307"),
     ("K11a", "mul_chunks_unaligned", MUL_CU, "csgn_tpu/ops/kernels.py:444"),
     ("K11b", "mul_decrypt_unaligned", MUL_CU, "csgn_tpu/ops/kernels.py:493"),
+    ("K5", "fill_anchor", "csgn_tpu_torch/csrc/fill.cu", "csgn_tpu/ops/kernels.py:581"),
+    ("K7", "encrypt_bits_philox", "csgn_tpu_torch/csrc/encrypt.cu",
+     "csgn_tpu/ops/encrypt_pallas.py:47"),
+    ("K13", "philox_streams", "csgn_tpu_torch/csrc/encrypt.cu", "tools/enc_stats.py:49"),
 ]
 # The kernels each path must launch (LAUNCHES keys; "_batched" = the same
 # kernel on [B, W, C] operands, reported in its kernel's row).
@@ -123,6 +166,9 @@ CIRCUIT_PATH = ("mul_chunks_unaligned", "mul_decrypt_unaligned", "mul_chunks_til
                 "mul_decrypt_tiled", "mul_chunks_unaligned_batched",
                 "mul_decrypt_unaligned_batched", "decrypt_parity_batched",
                 "encrypt_bits_counter", "apply_benes_batch")
+ENTRY_PATH = ("encrypt_bits_counter", "encrypt_bits_philox", "philox_streams", "fill_anchor",
+              "mul_chunks", "mul_decrypt", "mul_chunks_unaligned", "decrypt_parity",
+              "chunk_matches", "apply_benes")
 
 
 class SmokeFailure(RuntimeError):
@@ -358,6 +404,59 @@ def check_benes(gen, pgen, dev, errs: dict) -> None:
             print(f"[check] apply_benes_batch n={n} k={k}: bit-equal at C in "
                   f"{(1, 129, 1025) + ((1 << 14,) if k == FLEET else ())}")
     require(saw_parity_one, "no K12 case had parity 1")
+
+
+def philox_operands(w: int, d: int, seed: int, dev):
+    """Key operands at any W: n = 32 W - 1 bits, d random secret positions
+    (W = 3 has no Context, W being even there: a raw 3-word mask)."""
+    n = 32 * w - 1
+    idx = np.random.default_rng(seed).choice(n, d, replace=False).astype(np.int32)
+    mask = bit_positions_to_mask(idx, n)[:w]
+    valid = bit_positions_to_mask(np.arange(n), n)[:w]
+    return torch.from_numpy(idx).to(dev), words_from_numpy(mask, dev), words_from_numpy(valid, dev)
+
+
+def check_philox(gen, dev, errs: dict) -> None:
+    """K7 and K13 against their plain versions at every (W, d, batch) of the
+    grid; rows W and W + 1 straddle two Philox groups at W = 3.  K7 must
+    also equal the fix-up of K13's rows (the stream dump consumes exactly
+    K7's draws), round-trip and keep the padding bits zero."""
+    for w in PHILOX_WS:
+        for d in PHILOX_DS:
+            ops = philox_operands(w, d, w * 100 + d, dev)
+            for batch in PHILOX_BATCHES:
+                bits = torch.randint(0, 2, (batch,), dtype=torch.int32, device=dev, generator=gen)
+                seed = (SEED << 20) + batch
+                got = encrypt_kernels.encrypt_bits_philox(seed, bits, *ops)
+                e7 = max_abs_err(got, encrypt_kernels.encrypt_bits_philox_plain(seed, bits, *ops))
+                rows = encrypt_kernels.philox_streams(seed, batch, w + 2, dev)
+                e13 = max_abs_err(rows, encrypt_kernels.philox_streams_plain(
+                    seed, batch, w + 2, dev).to(torch.int32))
+                errs["encrypt_bits_philox"] = max(errs["encrypt_bits_philox"], e7)
+                errs["philox_streams"] = max(errs["philox_streams"], e13)
+                require(e7 == 0 and e13 == 0, f"K7/K13 disagree with plain at W={w} d={d} "
+                        f"batch={batch}")
+                require(torch.equal(encrypt_kernels.derive_words(
+                    rows.long() & M32, bits, *ops), got), "K7 != fix-up of K13's rows")
+                require(torch.equal(kernels.chunk_matches(got, ops[1]), bits),
+                        "Philox round trip failed")
+                require(not bool((got & ~ops[2][:, None]).any()), "padding bits set")
+                del got, rows, bits
+            print(f"[check] encrypt_bits_philox + philox_streams W={w} d={d} batches "
+                  f"{PHILOX_BATCHES}: bit-equal, K7 = fix-up of K13, round trip ok")
+
+
+def check_fill(dev, errs: dict) -> None:
+    """K5 against torch.full: the headline product's shape, a C % 4 != 0
+    product, and small ragged shapes."""
+    for t1, t2, w in [(MAIN_T, MAIN_T, 40), RAGGED_T + (40,), (3, 5, 40), (1, 1, 7)]:
+        seed = SEED * 7 + t1
+        got = kernels.fill_anchor(seed, t1, t2, w, dev)
+        e5 = max_abs_err(got, kernels.fill_anchor_plain(seed, t1, t2, w, dev))
+        errs["fill_anchor"] = max(errs["fill_anchor"], e5)
+        require(e5 == 0, f"K5 disagrees with torch.full at {t1}x{t2}, W={w}")
+        print(f"[check] fill_anchor {t1}x{t2} W={w} (C % 4 = {t1 * t2 % 4}): bit-equal")
+        del got
 
 
 # ---------------------------------------------------------------------------
@@ -689,6 +788,101 @@ def circuit_path(ctx, indices, setup: dict, rng, dev) -> tuple[dict, dict]:
     return launches, steps
 
 
+# ---------------------------------------------------------------------------
+# Phase 4d: the entry points, each on its default device
+# ---------------------------------------------------------------------------
+
+
+def entry_path(ctx, indices, rng, pgen) -> tuple[dict, dict]:
+    """The CLI's commands in-process, the Philox engine through the key, a
+    checkpoint round trip in both formats, and the encrypt statistics; no
+    device is named anywhere, so each lands on the current CUDA device.
+    Returns (launches, host wall per step)."""
+    shutil.rmtree(WORKDIR, ignore_errors=True)
+    WORKDIR.mkdir(parents=True)
+    small = ["--n", str(ctx.n), "--d", str(ctx.d), "--seed", str(SEED)]
+    configs = {}
+    for name, batch in (("selftest", ENC_BATCH), ("timings", MAIN_T)):
+        configs[name] = WORKDIR / f"{name}.json"
+        configs[name].write_text(RunConfig(ctx.n, ctx.d, SEED, batch).to_json())
+    commands = [["demo", *small], ["selftest", "--config", str(configs["selftest"])],
+                ["timings", "--config", str(configs["timings"])], ["info", *small],
+                ["flagship", *small]]
+    enc_bits = rng.integers(0, 2, ENC_BATCH).astype(np.int32)
+    mul_bits = [odd_bits(rng, MAIN_T), odd_bits(rng, MAIN_T)]
+    chain_bits = [odd_bits(rng, t) for t in CHAIN_T[:2]]
+    perm = Permutation.random(ctx, pgen)
+    perm.benes_plan()
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    steps: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    for argv in commands:
+        print(f"[entry] python -m csgn_tpu_torch.cli {' '.join(argv)}")
+        rc = _timed(steps, f"cli {argv[0]}", lambda: cli.main(argv))
+        require(rc == 0, f"cli {argv[0]} returned {rc}")
+
+    sk = SecretKey(ctx, indices)                     # the default device
+    require(sk.device.type == "cuda", f"SecretKey defaulted to {sk.device}")
+    words = _timed(steps, f"encrypt_batch philox {ENC_BATCH}",
+                   lambda: sk.encrypt_batch(enc_bits, SEED + 600, engine="philox"))
+    dec = sk.decrypt_batch(words).cpu().numpy()
+    require(np.array_equal(dec, enc_bits), "Philox round trip != bits")
+    del words
+    c1, c2 = (Ciphertext(sk.encrypt_batch(b, SEED + 610 + i, engine="philox"), ctx)
+              for i, b in enumerate(mul_bits))
+    prod, parity = _timed(steps, f"mul_and_decrypt philox {MAIN_T}x{MAIN_T}",
+                          lambda: sk.mul_and_decrypt(c1, c2))
+    staged = int(core.chunk_matches(prod.wt, sk.mask_words).sum() & 1)
+    require(int(parity) == staged == 1, f"Philox mul_and_decrypt parity {int(parity)}, "
+            f"staged oracle {staged}, expected 1")
+    del prod, c1, c2
+
+    cts = [Ciphertext(sk.encrypt_batch(b, SEED + 620 + i), ctx) for i, b in enumerate(chain_bits)]
+    chain = mul_chain(cts)
+    want = (int(sk.decrypt(chain)), int(sk.apply_permutation(perm).decrypt(
+        chain.apply_permutation(perm))))
+    objects = {"chain": chain, "sk": sk, "perm": perm}
+    _timed(steps, "save_state", lambda: cio.save_state(WORKDIR / "state.npz", objects))
+    state = _timed(steps, "load_state", lambda: cio.load_state(WORKDIR / "state.npz"))
+    _timed(steps, "save_state_sharded",
+           lambda: cio.save_state_sharded(WORKDIR / "sharded", objects))
+    sharded = _timed(steps, "load_state_sharded",
+                     lambda: cio.load_state_sharded(WORKDIR / "sharded"))
+    for tag, st in (("load_state", state), ("load_state_sharded", sharded)):
+        require(st["chain"].wt.is_cuda and st["sk"].device.type == "cuda",
+                f"{tag} did not load onto the card")
+        require(torch.equal(st["chain"].wt, chain.wt), f"{tag}: chain words differ")
+        require(np.array_equal(st["sk"].indices, sk.indices) and st["perm"] == perm,
+                f"{tag}: key or permutation differs")
+        got = (int(st["sk"].decrypt(st["chain"])), int(st["sk"].apply_permutation(
+            st["perm"]).decrypt(st["chain"].apply_permutation(st["perm"]))))
+        require(got == want == (1, 1), f"{tag}: decrypts {got} != {want}")
+    chunks, mb = chain.chunks, chain.nbytes / 1e6
+    del chain, cts, state, sharded
+
+    stats = _timed(steps, "enc_stats", lambda: enc_stats.run(STATS_CTX, STATS_BATCH, STATS_SEED))
+    require(stats["ok"], f"enc_stats failed: {stats['failed']}")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    idle = [k for k in ENTRY_PATH if launches[k] == 0]
+    require(not idle, f"entry path never launched: {idle}")
+    print(f"[entry] cli demo, selftest ({ENC_BATCH} bits), timings (batch {MAIN_T}), info, "
+          f"flagship: rc 0; Philox {ENC_BATCH}-bit round trip ok; Philox {MAIN_T}x{MAIN_T} "
+          f"mul_and_decrypt parity {int(parity)} = staged oracle; checkpoint of a {CHAIN_T[0]}x{CHAIN_T[1]} chain ({chunks} chunks, "
+          f"{mb:.1f} MB) + key + permutation through save_state/load_state and "
+          f"save_state_sharded/load_state_sharded: bit-equal, decrypts {want}")
+    print("[entry] enc_stats " + json.dumps({k: v for k, v in stats.items() if k != "hist"}))
+    print(f"[entry] host wall per step (s): {json.dumps(steps)}; whole phase {seconds:.3f} s")
+    print(f"[entry] launches {json.dumps({k: launches[k] for k in ENTRY_PATH})}; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    shutil.rmtree(WORKDIR, ignore_errors=True)
+    return launches, {"steps": steps, "seconds": seconds, "enc_stats": stats}
+
+
 def profile_path(label: str, run, warm: int) -> None:
     """A path `warm` times warm (host wall), then once under torch.profiler:
     device busy time (the union of kernel intervals), idle share of the host
@@ -735,8 +929,8 @@ def profile_path(label: str, run, warm: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def time_pair(kernel_fn, plain_fn, inputs) -> tuple[float, float]:
-    """Median ms of kernel and plain over distinct inputs, in turns
+def time_turns(kernel_fn, plain_fn, inputs) -> tuple[list, list]:
+    """ms of kernel and plain on each of the distinct inputs, in turns
     (plain, kernel, kernel, plain, ...), after one warm-up of each."""
     kernel_fn(*inputs[0])
     plain_fn(*inputs[0])
@@ -752,23 +946,94 @@ def time_pair(kernel_fn, plain_fn, inputs) -> tuple[float, float]:
             end.record()
             end.synchronize()
             times[name].append(start.elapsed_time(end))
-    return statistics.median(times["kernel"]), statistics.median(times["plain"])
+    return times["kernel"], times["plain"]
 
 
-def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked) -> dict:
+def run_ms(fn, inputs) -> float:
+    """ms per call of one run of `fn` over the distinct inputs, launched back
+    to back after one untimed call, so that the tail of whatever ran before
+    stays outside the window and launches queue behind each other."""
+    fn(*inputs[-1])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for args in inputs:
+        fn(*args)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / len(inputs)
+
+
+def time_pair(kernel_fn, plain_fn, inputs) -> tuple[float, float]:
+    """ms per call of kernel and plain: the mean of two runs of each over the
+    distinct inputs, in turns (plain, kernel, kernel, plain)."""
+    p0, k0, k1, p1 = (run_ms(f, inputs) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+    return (k0 + k1) / 2, (p0 + p1) / 2
+
+
+class Bounds:
+    """The least time the card could take for a function: the larger of its
+    bytes (each input read once, each output written once) over HBM's rate
+    and its integer operations over the INT32 peak at `sm_mhz`."""
+
+    def __init__(self, sm_mhz: float):
+        self.sm_mhz = sm_mhz
+        self.int_ops_per_s = SMS * INT32_LANES * sm_mhz * 1e6
+
+    def __call__(self, nbytes: float, ops: float = 0.0) -> dict:
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / self.int_ops_per_s * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bound_bytes": int(nbytes), "bound_ops": int(ops)}
+
+
+def mul_bytes(w: int, t1: int, t2: int, batch: int = 1) -> int:
+    """A product's operands read and output written."""
+    return 4 * batch * w * (t1 + t2 + t1 * t2)
+
+
+def encrypt_ops(w: int, batch: int, engine: str) -> int:
+    """Integer operations of an encrypt of W = `w` words (or, with engine
+    "dump", of K13 over `w` rows) per the counts above: W + 2 stream rows."""
+    if engine == "counter":       # one threefry call per pair of rows
+        calls, ops = (w + 3) // 2, THREEFRY_OPS
+    elif engine == "philox":      # one Philox call per group of four rows
+        calls, ops = -(-(w + 2) // 4), PHILOX_OPS
+    else:
+        return batch * -(-w // 4) * PHILOX_OPS
+    return batch * (calls * ops + FIXUP_OPS * w)
+
+
+def library_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The one PyTorch call that computes the product (library_ms only)."""
+    return torch.bitwise_and(a[:, :, None], b[:, None, :])
+
+
+def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked, bound) -> dict:
     m = sk.mask_words
     w = ctx.words32
+    nz = int((m != 0).sum())          # the mask's nonzero rows: all K3 must read
     out = {}
 
-    def report(name, shape, nbytes, ms, plain_ms, extra="", batched=False):
+    def report(name, shape, nbytes, ms, plain_ms, extra="", batched=False, bnd=None,
+               library_ms=None):
         entry = {"shape": shape, "ms": ms, "plain_ms": plain_ms}
+        if bnd is not None:
+            entry.update(bnd, library_ms=library_ms)
         if batched:
             out[name]["batched"] = entry
         else:
             out[name] = entry
         tag = f"{name} (batched)" if batched else name
+        more = ""
+        if bnd is not None:
+            more = f"; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})"
+            if library_ms is not None:
+                more += f", library {library_ms:.4f} ms"
         print(f"[time] {tag} {shape}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), "
-              f"plain {plain_ms:.4f} ms ({nbytes / plain_ms / 1e6:.1f} GB/s){extra}; {card}")
+              f"plain {plain_ms:.4f} ms ({nbytes / plain_ms / 1e6:.1f} GB/s){extra}{more}; "
+              f"{card}")
 
     # Distinct inputs are distinct real ciphertexts: a fresh chunk of bit 1
     # matches the mask, so about a quarter of each product's chunks match,
@@ -783,30 +1048,78 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked) -> dict:
     ms, pms = time_pair(lambda x, y: kernels.mul_decrypt(x, y, m),
                         lambda x, y: kernels.mul_decrypt_plain(x, y, m), ab)
     report("mul_decrypt", shape, prod_bytes, ms, pms,
-           f", {MAIN_T * MAIN_T / ms / 1e3:.1f} M chunk-ops/s fused")
+           f", {MAIN_T * MAIN_T / ms / 1e3:.1f} M chunk-ops/s fused",
+           bnd=bound(mul_bytes(w, MAIN_T, MAIN_T) + 4 * w + 8))
     ms, pms = time_pair(kernels.mul_chunks, kernels.mul_chunks_plain, ab)
-    report("mul_chunks", shape, prod_bytes, ms, pms)
+    lib_ms, _ = time_pair(library_and, kernels.mul_chunks, ab)
+    report("mul_chunks", shape, prod_bytes, ms, pms, bnd=bound(mul_bytes(w, MAIN_T, MAIN_T)),
+           library_ms=lib_ms)
+
+    # K5, the write anchor: against torch.full and Tensor.fill_, then in
+    # turns with K1 and with K2 on the same distinct inputs; value_vs_anchor
+    # is the median over pairs of anchor ms / kernel ms (bench.py:280-286).
+    def anchor(*_):
+        return kernels.fill_anchor(SEED, MAIN_T, MAIN_T, w, dev)
+
+    seeds = [(SEED + k,) for k in range(REPS)]
+    ms, pms = time_pair(lambda s: kernels.fill_anchor(s, MAIN_T, MAIN_T, w, dev),
+                        lambda s: kernels.fill_anchor_plain(s, MAIN_T, MAIN_T, w, dev), seeds)
+    buf = torch.empty((w, MAIN_T * MAIN_T), dtype=torch.int32, device=dev)
+    lib_ms, _ = time_pair(lambda s: buf.fill_(s & 0x7FFFFFFF),
+                          lambda s: kernels.fill_anchor(s, MAIN_T, MAIN_T, w, dev), seeds)
+    del buf
+    ratios = {}
+    for name, fn in (("mul_chunks", kernels.mul_chunks),
+                     ("mul_decrypt", lambda x, y: kernels.mul_decrypt(x, y, m))):
+        k_ms, a_ms = time_turns(fn, anchor, ab)
+        ratios[name] = {"value_vs_anchor": statistics.median(
+            a / k for a, k in zip(a_ms, k_ms)), "kernel_ms": k_ms, "anchor_ms": a_ms}
+    report("fill_anchor", shape, prod_bytes, ms, pms,
+           f"; anchor / K1 {ratios['mul_chunks']['value_vs_anchor']:.3f}, anchor / K2 "
+           f"{ratios['mul_decrypt']['value_vs_anchor']:.3f} (median per pair)",
+           bnd=bound(prod_bytes), library_ms=lib_ms)
+    out["fill_anchor"]["value_vs_anchor"] = ratios
 
     prods = [(kernels.mul_chunks(x, y),) for x, y in ab]      # DEC_CHUNKS chunks each
     del ab
     ms, pms = time_pair(lambda x: kernels.decrypt_parity(x, m),
                         lambda x: kernels.decrypt_parity_plain(x, m), prods)
     report("decrypt_parity", f"{w}x{DEC_CHUNKS}", w * DEC_CHUNKS * 4, ms, pms,
-           " (bytes counted over all W rows; the kernel reads the mask's rows only)")
+           f" (bytes counted over all W rows; the kernel reads the mask's {nz} rows only)",
+           bnd=bound(4 * nz * DEC_CHUNKS + 4 * w + 8))
     del prods
 
     bits = torch.randint(0, 2, (ENC_BATCH,), dtype=torch.int32, device=dev, generator=gen)
     args = (bits, *sk.encrypt_operands)
     seeds = [(SEED + k,) for k in range(1, REPS + 1)]
+    enc_bytes = 4 * (w + 1) * ENC_BATCH
     ms, pms = time_pair(lambda s: encrypt_kernels.encrypt_bits_counter(s, *args),
                         lambda s: encrypt_kernels.encrypt_bits_counter_plain(s, *args), seeds)
     report("encrypt_bits_counter", f"{w}x{ENC_BATCH}", w * ENC_BATCH * 4, ms, pms,
-           f", {ENC_BATCH / ms / 1e3:.1f} M enc/s")
+           f", {ENC_BATCH / ms / 1e3:.1f} M enc/s",
+           bnd=bound(enc_bytes, encrypt_ops(w, ENC_BATCH, "counter")))
+    ms, pms = time_pair(lambda s: encrypt_kernels.encrypt_bits_philox(s, *args),
+                        lambda s: encrypt_kernels.encrypt_bits_philox_plain(s, *args), seeds)
+    k7_ms, k4_ms = time_pair(lambda s: encrypt_kernels.encrypt_bits_philox(s, *args),
+                             lambda s: encrypt_kernels.encrypt_bits_counter(s, *args), seeds)
+    report("encrypt_bits_philox", f"{w}x{ENC_BATCH}", w * ENC_BATCH * 4, ms, pms,
+           f", {ENC_BATCH / ms / 1e3:.1f} M enc/s; in turns with K4: K7 {k7_ms:.4f} ms, "
+           f"K4 {k4_ms:.4f} ms", bnd=bound(enc_bytes, encrypt_ops(w, ENC_BATCH, "philox")))
+    out["encrypt_bits_philox"]["against_counter"] = {"philox_ms": k7_ms, "counter_ms": k4_ms}
     fresh = [(encrypt_kernels.encrypt_bits_counter(s, *args),) for (s,) in seeds]
     ms, pms = time_pair(lambda x: kernels.chunk_matches(x, m),
                         lambda x: kernels.chunk_matches_plain(x, m), fresh)
-    report("chunk_matches", f"{w}x{ENC_BATCH}", w * ENC_BATCH * 4, ms, pms)
+    report("chunk_matches", f"{w}x{ENC_BATCH}", w * ENC_BATCH * 4, ms, pms,
+           bnd=bound(4 * nz * ENC_BATCH + 4 * ENC_BATCH + 4 * w))
     del fresh, bits, args
+
+    # K13 at the statistics' size: W + 2 = 130 rows of 2^20 columns.
+    rows = STATS_CTX.words32 + 2
+    ms, pms = time_pair(
+        lambda s: encrypt_kernels.philox_streams(s, STATS_BATCH, rows, dev),
+        lambda s: encrypt_kernels.philox_streams_plain(s, STATS_BATCH, rows, dev), seeds)
+    report("philox_streams", f"{rows}x{STATS_BATCH}", 4 * rows * STATS_BATCH, ms, pms,
+           bnd=bound(4 * rows * STATS_BATCH, encrypt_ops(rows, STATS_BATCH, "dump")))
 
     # Batched K1-K3 at the fleet's shapes: 64 x (128 x 128), real ciphertexts.
     def fleet(seed):
@@ -819,16 +1132,19 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked) -> dict:
     fshape = f"{FLEET}x({FLEET_T}x{FLEET_T})"
     fbytes = FLEET * w * FLEET_T * FLEET_T * 4
     ms, pms = time_pair(kernels.mul_chunks, kernels.mul_chunks_plain, fab)
-    report("mul_chunks", fshape, fbytes, ms, pms, batched=True)
+    report("mul_chunks", fshape, fbytes, ms, pms, batched=True,
+           bnd=bound(mul_bytes(w, FLEET_T, FLEET_T, FLEET)))
     ms, pms = time_pair(lambda x, y: kernels.mul_decrypt(x, y, m),
                         lambda x, y: kernels.mul_decrypt_plain(x, y, m), fab)
-    report("mul_decrypt", fshape, fbytes, ms, pms, batched=True)
+    report("mul_decrypt", fshape, fbytes, ms, pms, batched=True,
+           bnd=bound(mul_bytes(w, FLEET_T, FLEET_T, FLEET) + 4 * w + 8 * FLEET))
     fprods = [(kernels.mul_chunks(x, y),) for x, y in fab]
     del fab
     ms, pms = time_pair(lambda x: kernels.decrypt_parity(x, m),
                         lambda x: kernels.decrypt_parity_plain(x, m), fprods)
     report("decrypt_parity", f"{FLEET}x{w}x{FLEET_T * FLEET_T}", fbytes, ms, pms,
-           " (bytes counted over all W rows)", batched=True)
+           " (bytes counted over all W rows)", batched=True,
+           bnd=bound(4 * nz * FLEET * FLEET_T * FLEET_T + 4 * w + 8 * FLEET))
     del fprods
 
     # Beneš kernels at n = 1247: K8 / K12 over 2^20 chunks, K9 over 64 x 2^14.
@@ -840,31 +1156,34 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked) -> dict:
     ms, pms = time_pair(lambda x: benes_kernels.apply_benes(x, plan),
                         lambda x: benes_kernels.apply_benes_plain(x, plan), xs)
     report("apply_benes", f"{w}x{PERM_CHUNKS}", pbytes, ms, pms,
-           f", {PERM_CHUNKS / ms / 1e3:.1f} M chunks/s")
+           f", {PERM_CHUNKS / ms / 1e3:.1f} M chunks/s", bnd=bound(pbytes))
     ms, pms = time_pair(lambda x: benes_kernels.apply_benes_decrypt(x, plan, key),
                         lambda x: benes_kernels.apply_benes_decrypt_plain(x, plan, key), xs)
     fused_ms, staged_ms = time_pair(
         lambda x: benes_kernels.apply_benes_decrypt(x, plan, key),
         lambda x: kernels.decrypt_parity(benes_kernels.apply_benes(x, plan), key), xs)
     report("apply_benes_decrypt", f"{w}x{PERM_CHUNKS}", pbytes, ms, pms,
-           f"; staged K8 + K3 {staged_ms:.4f} ms against fused {fused_ms:.4f} ms in turns")
+           f"; staged K8 + K3 {staged_ms:.4f} ms against fused {fused_ms:.4f} ms in turns",
+           bnd=bound(pbytes + 4 * w + 8))
     out["apply_benes_decrypt"]["staged_ms"] = staged_ms
     del xs
     kc = 1 << 14
     xb = [(canon_words(ctx, (stacked.k, w, kc), gen, dev),) for _ in range(REPS)]
+    kbytes = 2 * stacked.k * w * kc * 4
     ms, pms = time_pair(lambda x: benes_kernels.apply_benes_batch(x, stacked),
                         lambda x: benes_kernels.apply_benes_batch_plain(x, stacked), xb)
-    report("apply_benes_batch", f"{stacked.k}x{w}x{kc}", 2 * stacked.k * w * kc * 4, ms, pms,
-           f", {stacked.k * kc / ms / 1e3:.1f} M chunks/s")
+    report("apply_benes_batch", f"{stacked.k}x{w}x{kc}", kbytes, ms, pms,
+           f", {stacked.k * kc / ms / 1e3:.1f} M chunks/s", bnd=bound(kbytes))
     return out
 
 
-def mode_timings(ctx, sk, gen, dev, card: str) -> dict:
+def mode_timings(ctx, sk, gen, dev, card: str, bound) -> dict:
     """The multiply's unaligned and b-streamed modes: each against its plain
     version, against the aligned mode at (nearly) equal product bytes, the
-    unaligned mode against the 4-byte-store walk it replaces and the
-    b-streamed mode against the aligned walk at its own shape; then the
-    streaming threshold sweep.  Keys are the TPU kernels' ids."""
+    unaligned mode against the 4-byte-store walk it replaces, the b-streamed
+    mode against the aligned walk at its own shape, and the product forms
+    against the library call; then the streaming threshold sweep.  Keys are
+    the TPU kernels' ids."""
     m = sk.mask_words
     w = ctx.words32
     out = {}
@@ -907,15 +1226,18 @@ def mode_timings(ctx, sk, gen, dev, card: str) -> dict:
         paired = [a + b for a, b in zip(ins, ref_in)]
         ms3, eq_ms = time_pair(*both(mul(count), forced("aligned", count)), paired)
         rt1, rt2 = ref_in[0][0].shape[-1], ref_in[0][1].shape[-1]
+        lib_ms = None if count else time_pair(library_and, mul(count), ins)[0]
+        bnd = bound(mul_bytes(w, t1, t2) + (4 * w + 8 if count else 0))
         out[tid] = {"shape": f"{t1}x{t2}", "ms": ms, "plain_ms": pms,
                     f"{other}_same_shape_ms": other_ms, "against_it_ms": ms2,
                     "aligned_equal_bytes_ms": eq_ms, "aligned_shape": f"{rt1}x{rt2}",
-                    "against_aligned_ms": ms3}
+                    "against_aligned_ms": ms3, **bnd, "library_ms": lib_ms}
+        lib = "" if lib_ms is None else f"; library {lib_ms:.4f} ms"
         print(f"[time] {tid} {'mul_decrypt' if count else 'mul_chunks'} {mode} {t1}x{t2}: "
               f"kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s), plain {pms:.4f} ms; "
               f"{other} walk at this shape {other_ms:.4f} ms against {ms2:.4f}; aligned "
               f"{rt1}x{rt2} ({w * rt1 * rt2 * 4 / 1e9:.3f} GB) {eq_ms:.4f} ms against "
-              f"{ms3:.4f}; {card}")
+              f"{ms3:.4f}; bound {bnd['bound_ms']:.4f} ms{lib}; {card}")
         del ins, paired
     del aligned_in, half_in
 
@@ -963,8 +1285,15 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0])
+    bound = Bounds(sm_mhz)
     print(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}, capability {torch.cuda.get_device_capability(0)}")
+          f"CUDA {torch.version.cuda}, capability {torch.cuda.get_device_capability(0)}; "
+          f"max SM clock {sm_mhz:.0f} MHz: bounds at {HBM_BYTES_PER_S / 1e12:.2f} TB/s and "
+          f"{bound.int_ops_per_s / 1e12:.2f} T int32 op/s")
 
     # Phase 2: build.
     t0 = time.perf_counter()
@@ -986,6 +1315,8 @@ def main() -> int:
     check_batched(ctx, sk, gen, dev, errs)
     check_modes(ctx, sk, gen, dev, errs)
     check_benes(gen, pgen, dev, errs)
+    check_philox(gen, dev, errs)
+    check_fill(dev, errs)
     torch.cuda.synchronize()
 
     # Phase 4: the main path.
@@ -1019,15 +1350,21 @@ def main() -> int:
             ctx, indices, setup, np.random.default_rng(2), dev), warm=1)
     torch.cuda.empty_cache()
 
+    # Phase 4d: the entry points, on their default device.
+    torch.cuda.reset_peak_memory_stats(dev)
+    entry_launches, _ = entry_path(ctx, indices, rng, pgen)
+    torch.cuda.empty_cache()
+
     # Phase 5: timings.
-    times = timings(ctx, sk, gen, dev, smi, p, stacked)
-    times.update(mode_timings(ctx, sk, gen, dev, smi))
+    times = timings(ctx, sk, gen, dev, smi, p, stacked, bound)
+    times.update(mode_timings(ctx, sk, gen, dev, smi, bound))
     torch.cuda.synchronize()
     extra = ("unaligned_t2_1", "unaligned_t2_3", "threshold_sweep")
     print(f"[time] mode timings {json.dumps({k: times[k] for k in extra})}")
 
     rows = []
-    paths = (("main", main_launches), ("rotation", rot_launches), ("circuit", circ_launches))
+    paths = (("main", main_launches), ("rotation", rot_launches), ("circuit", circ_launches),
+             ("entry", entry_launches))
     for tid, name, src, rep in KERNELS:
         by_path = {path: launches.get(name, 0) + launches.get(name + "_batched", 0)
                    for path, launches in paths}

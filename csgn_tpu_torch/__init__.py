@@ -8,13 +8,17 @@ held as ``torch.int32`` (a bit-identical view of the uint32 words).
 
 This package imports torch and numpy only, never jax or csgn_tpu.  Tensors on
 the CPU run the plain torch versions of the kernels; tensors on a CUDA device
-run the kernels in ``csrc/``, built by nvcc at first use.
+run the kernels in ``csrc/``, built by nvcc at first use.  Entry points put
+their objects on the current CUDA device unless given ``device="cpu"`` (the
+CLI: ``--device cpu``), and raise where there is no card.  Checkpoints
+(`csgn_tpu_torch.io`) use the JAX package's file format.
 """
 
 from csgn_tpu_torch import models
 from csgn_tpu_torch.batch import CiphertextBatch
 from csgn_tpu_torch.ciphertext import Ciphertext
 from csgn_tpu_torch.circuit import CtExpr
+from csgn_tpu_torch.config import RunConfig
 from csgn_tpu_torch.context import Context
 from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.plaintext import Plaintext
@@ -25,5 +29,5 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Context", "Plaintext", "SecretKey", "Ciphertext", "CiphertextBatch", "Permutation",
-    "CtExpr", "BatchExecutor", "models", "__version__",
+    "CtExpr", "RunConfig", "BatchExecutor", "models", "__version__",
 ]

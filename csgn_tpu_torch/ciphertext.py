@@ -139,14 +139,16 @@ class Ciphertext:
         return layout.u32_to_u64(self.chunk_major()).reshape(-1)
 
     @classmethod
-    def from_u64(cls, words64: np.ndarray, ctx: Context, device="cpu") -> "Ciphertext":
-        """Build from reference-layout uint64 words (flat or [chunks, words64])."""
+    def from_u64(cls, words64: np.ndarray, ctx: Context, device=None) -> "Ciphertext":
+        """Build from reference-layout uint64 words (flat or [chunks, words64])
+        on `device` (None = the current CUDA device, ``"cpu"`` for the CPU)."""
         w64 = np.asarray(words64, dtype=np.uint64).reshape(-1, ctx.words64)
         return cls.from_chunk_major(layout.u64_to_u32(w64), ctx, device)
 
     @classmethod
-    def from_chunk_major(cls, words: np.ndarray, ctx: Context, device="cpu") -> "Ciphertext":
-        """Build from a chunk-major uint32[chunks, W] array."""
+    def from_chunk_major(cls, words: np.ndarray, ctx: Context, device=None) -> "Ciphertext":
+        """Build from a chunk-major uint32[chunks, W] array on `device`
+        (None = the current CUDA device)."""
         return cls(layout.words_from_numpy(np.asarray(words, dtype=np.uint32).T, device), ctx)
 
     def bit_string(self) -> str:

@@ -5,7 +5,9 @@
 port's objects from it, bit-identically, without importing either JAX or
 `csgn_tpu`.  Words cross as ``torch.from_numpy(a.view(np.int32))`` and come
 back as ``.numpy().view(np.uint32)``; a netlist crosses as its Bristol text
-(``Netlist.to_text()``).
+(``Netlist.to_text()``).  ``device=None`` is the current CUDA device;
+``device="cpu"`` runs on the CPU.  Whole files cross through `csgn_tpu_torch.io`,
+which reads and writes the JAX package's ``.npz`` format.
 """
 
 from __future__ import annotations
@@ -31,18 +33,18 @@ __all__ = [
 ]
 
 
-def secret_key_from_numpy(ctx: Context, indices: np.ndarray, device="cpu") -> SecretKey:
+def secret_key_from_numpy(ctx: Context, indices: np.ndarray, device=None) -> SecretKey:
     """The port's key over the same secret positions (e.g. ``sk.indices``)."""
     return SecretKey(ctx, np.asarray(indices), device)
 
 
-def ciphertext_from_numpy(words_u32_wc: np.ndarray, ctx: Context, device="cpu") -> Ciphertext:
+def ciphertext_from_numpy(words_u32_wc: np.ndarray, ctx: Context, device=None) -> Ciphertext:
     """The port's ciphertext from word-major uint32 ``[W, C]`` words."""
     return Ciphertext(words_from_numpy(words_u32_wc, device), ctx)
 
 
 def ciphertext_batch_from_numpy(words_u32_bwc: np.ndarray, ctx: Context,
-                                device="cpu") -> CiphertextBatch:
+                                device=None) -> CiphertextBatch:
     """The port's batch from uint32 ``[B, W, C]`` words (``np.asarray(cb.wt)``)."""
     return CiphertextBatch(words_from_numpy(words_u32_bwc, device), ctx)
 

@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from csgn_tpu_torch._device import resolve_device
+
 __all__ = [
     "words32_for",
     "pack_bits",
@@ -82,11 +84,13 @@ def unpack_bits_wc(words: torch.Tensor, n: int) -> torch.Tensor:
     return bits[..., :n, :].to(torch.uint8)
 
 
-def words_from_numpy(words_u32: np.ndarray, device="cpu") -> torch.Tensor:
-    """uint32 numpy words -> int32 torch tensor on `device` (bit-identical).
+def words_from_numpy(words_u32: np.ndarray, device=None) -> torch.Tensor:
+    """uint32 numpy words -> int32 torch tensor on `device` (bit-identical;
+    None = the current CUDA device, ``"cpu"`` for the CPU).
 
     Always a copy: the tensor never aliases the caller's array, which may be
     read-only (a JAX array's host view)."""
+    device = resolve_device(device)
     a = np.array(words_u32, dtype=np.uint32, order="C")
     return torch.from_numpy(a.view(np.int32)).to(device)
 

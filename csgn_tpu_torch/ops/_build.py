@@ -50,6 +50,9 @@ LAUNCHES = {
     "decrypt_parity": 0,
     "chunk_matches": 0,
     "encrypt_bits_counter": 0,
+    "encrypt_bits_philox": 0,
+    "philox_streams": 0,
+    "fill_anchor": 0,
     # the same K1-K3 kernels launched on batched [B, W, C] operands
     "mul_chunks_batched": 0,
     "mul_decrypt_batched": 0,
@@ -80,6 +83,11 @@ _SIGNATURES = {
     "csgn_benes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # bits, key_idx, mask, valid, out, w, d, batch, seed_lo, seed_hi, stream
     "csgn_encrypt_counter": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "csgn_encrypt_philox": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # out, rows, batch, seed_lo, seed_hi, stream
+    "csgn_philox_streams": (_P, _I, _I, _I, _I, _P),
+    # out, value, w, c, stream
+    "csgn_fill_anchor": (_P, _I, _I, _I, _P),
 }
 
 

@@ -16,6 +16,9 @@ torch versions.
   * K3 `decrypt_parity` / `chunk_matches` — streaming eq-all against the key
     mask, as a count or per chunk (csrc/decrypt.cu; replaces
     `decrypt_parity_pallas`).
+  * K5 `fill_anchor` — a constant fill of the product's shape at the aligned
+    multiply's thread map, the write speed-of-light anchor that K1/K2 are
+    timed against (csrc/fill.cu; replaces `fill_anchor_pallas`).
 
 Every wrapper takes word-major ``[W, C]`` words or a batch ``[B, W, C]``
 (one kernel launch for the whole batch, the element from the grid; the JAX
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from csgn_tpu_torch._device import resolve_device
 from csgn_tpu_torch.ops import core
 from csgn_tpu_torch.ops._build import LAUNCHES, check, grids, lib, ptr, stream_of
 from csgn_tpu_torch.utils.metrics import op_metrics
@@ -52,6 +56,8 @@ __all__ = [
     "decrypt_parity_plain",
     "chunk_matches",
     "chunk_matches_plain",
+    "fill_anchor",
+    "fill_anchor_plain",
 ]
 
 
@@ -233,3 +239,41 @@ def chunk_matches(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if words.device.type == "cpu":
         return chunk_matches_plain(words, mask)
     return _decrypt_cuda("chunk_matches", words, mask, True)
+
+
+# ---------------------------------------------------------------------------
+# K5: the write anchor
+# ---------------------------------------------------------------------------
+
+
+def _anchor_value(seed: int) -> int:
+    """The seed's low 32 bits as the int32 view."""
+    v = int(seed) & 0xFFFFFFFF
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def fill_anchor_plain(seed: int, t1: int, t2: int, w: int, device=None) -> torch.Tensor:
+    """int32 ``[W, t1*t2]`` filled with the seed's low 32 bits (plain torch)."""
+    return torch.full((w, t1 * t2), _anchor_value(seed), dtype=torch.int32,
+                      device=resolve_device(device))
+
+
+def fill_anchor(seed: int, t1: int, t2: int, w: int, device=None) -> torch.Tensor:
+    """The write anchor: int32 ``[W, t1*t2]`` filled with the seed's low 32
+    bits, written at K1's thread map with no pad columns (the JAX fill pads
+    t1 up to its block).  ``device=None`` is the current CUDA device; a CPU
+    device takes the plain version, a CUDA device launches csrc/fill.cu."""
+    device = resolve_device(device)
+    if min(t1, t2, w) < 0:
+        raise ValueError(f"fill_anchor: negative shape t1={t1} t2={t2} w={w}")
+    if device.type == "cpu":
+        return fill_anchor_plain(seed, t1, t2, w, device)
+    if device.type != "cuda":
+        raise ValueError(f"fill_anchor: device must be cpu or cuda, got {device}")
+    out = torch.empty((w, t1 * t2), dtype=torch.int32, device=device)
+    if out.numel():
+        with torch.cuda.device(device):
+            check("fill_anchor", lib().csgn_fill_anchor(
+                ptr(out), int(seed) & 0xFFFFFFFF, w, t1 * t2, stream_of(out)))
+        LAUNCHES["fill_anchor"] += 1
+    return out

@@ -9,10 +9,13 @@ chunks.  The index table, the mask and the context's valid mask live on the
 key's device, where the kernels read them.
 
 Randomness is explicit: `generate` takes a `torch.Generator`, and encryption
-takes an integer seed for the counter engine (threefry2x32 on global
-counters, `ops.encrypt_kernels`).  That engine's bits are defined
-independently of the backend, so the same (key, seed, bits) encrypt to the
-same words here and in the JAX package (`engine="counter"`).
+takes an integer seed for one of two counter-based engines
+(`ops.encrypt_kernels`): the counter engine (threefry2x32, the default),
+whose bits are defined independently of the backend, so the same (key, seed,
+bits) encrypt to the same words here and in the JAX package
+(`engine="counter"`), and the Philox engine, the counterpart of the JAX
+package's hardware-PRNG engine.  Keys live on the current CUDA device unless
+``device="cpu"`` is given.
 """
 
 from __future__ import annotations
@@ -21,18 +24,21 @@ import numpy as np
 import torch
 
 from csgn_tpu_torch import layout
+from csgn_tpu_torch._device import resolve_device
 from csgn_tpu_torch.batch import CiphertextBatch
 from csgn_tpu_torch.ciphertext import Ciphertext
 from csgn_tpu_torch.circuit import collect_leaves, fold_many, lift, pack_fleet_bits, \
     unpack_fleet_bits
 from csgn_tpu_torch.context import Context
 from csgn_tpu_torch.ops import core, dispatch
-from csgn_tpu_torch.ops.encrypt_kernels import encrypt_bits_counter
+from csgn_tpu_torch.ops.encrypt_kernels import encrypt_bits_counter, encrypt_bits_philox
 from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.plaintext import Plaintext
 from csgn_tpu_torch.utils.metrics import op_metrics
 
 __all__ = ["SecretKey"]
+
+_ENGINES = {"counter": encrypt_bits_counter, "philox": encrypt_bits_philox}
 
 
 class SecretKey:
@@ -40,7 +46,10 @@ class SecretKey:
 
     __slots__ = ("ctx", "indices", "device", "_mask", "_mask_t", "_idx_t", "_valid_t")
 
-    def __init__(self, ctx: Context, indices: np.ndarray, device="cpu"):
+    def __init__(self, ctx: Context, indices: np.ndarray, device=None):
+        """Key over `indices` on `device`: None is the current CUDA device (it
+        raises where there is none), ``"cpu"`` the CPU."""
+        device = resolve_device(device)
         indices = np.asarray(indices, dtype=np.int32)
         if indices.shape != (ctx.d,):
             raise ValueError(f"expected {ctx.d} key indices, got shape {indices.shape}")
@@ -51,7 +60,7 @@ class SecretKey:
         self.ctx = ctx
         self.indices = indices
         self.indices.setflags(write=False)
-        self.device = torch.device(device)
+        self.device = device
         self._mask = layout.bit_positions_to_mask(indices, ctx.n)
         self._mask_t = layout.words_from_numpy(self._mask, self.device)
         self._idx_t = torch.from_numpy(indices.copy()).to(self.device)
@@ -60,7 +69,7 @@ class SecretKey:
     # -- constructors -------------------------------------------------------
 
     @classmethod
-    def generate(cls, ctx: Context, generator: torch.Generator, device="cpu") -> "SecretKey":
+    def generate(cls, ctx: Context, generator: torch.Generator, device=None) -> "SecretKey":
         """Sample a fresh key (uniform d-subset of [0, n), random order)."""
         return cls(ctx, core.keygen(ctx.n, ctx.d, generator).numpy(), device)
 
@@ -79,7 +88,7 @@ class SecretKey:
     @property
     def encrypt_operands(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``(key indices int32[d], mask int32[W], valid mask int32[W])`` on
-        the key's device: the key-side arguments of `encrypt_bits_counter`."""
+        the key's device: the key-side arguments of both encrypt engines."""
         return self._idx_t, self._mask_t, self._valid_t
 
     def size(self) -> int:
@@ -93,13 +102,24 @@ class SecretKey:
         bits = torch.tensor([int(plaintext) & 1], dtype=torch.int32, device=self.device)
         return Ciphertext(self.encrypt_batch(bits, seed), self.ctx)
 
-    def encrypt_batch(self, bits, seed: int) -> torch.Tensor:
+    def encrypt_batch(self, bits, seed: int, engine: str = "counter") -> torch.Tensor:
         """Encrypt bits[batch] -> fresh chunk words int32[W, batch].
 
-        Counter engine: the words depend only on (key, seed, bit, batch
-        index), on any device and for any batch size.  `bits` may be a
-        tensor, an array or a list; it is moved to the key's device.
+        engine="counter" (default): threefry2x32 on global counters (K4);
+        the words depend only on (key, seed, bit, batch index), on any device
+        and for any batch size, and equal the JAX package's
+        ``encrypt_batch(..., engine="counter")``.
+        engine="philox": Philox-4x32-10 on global counters (K7), the
+        counterpart of the JAX package's ``engine="pallas"`` (the TPU's
+        hardware generator): the same invariants, fewer integer operations
+        per word; reproducible from (key, seed, bit, batch index) like the
+        counter engine, but its bits are its own (ops/encrypt_kernels.py).
+        `bits` may be a tensor, an array or a list; it is moved to the key's
+        device.
         """
+        fn = _ENGINES.get(engine)
+        if fn is None:
+            raise ValueError(f"unknown encrypt engine {engine!r}")
         bits = torch.as_tensor(bits, device=self.device)
         if bits.dim() != 1:
             raise ValueError(f"encrypt_batch expects bits[batch], got shape {tuple(bits.shape)}")
@@ -107,7 +127,7 @@ class SecretKey:
         with op_metrics().record(
             "key.encrypt", chunks_out=batch, bytes_moved=self.ctx.chunk_count_bytes(batch),
         ):
-            return encrypt_bits_counter(seed, bits, *self.encrypt_operands)
+            return fn(seed, bits, *self.encrypt_operands)
 
     # -- decryption ---------------------------------------------------------
 

@@ -27,7 +27,7 @@ from csgn_tpu_torch.ops import dispatch, kernels
 def _keys(ctx, seed):
     idx = np.random.default_rng(seed).choice(ctx.n, ctx.d, replace=False).astype(np.int32)
     tctx = T.Context(ctx.n, ctx.d)
-    return J.SecretKey(ctx, idx), convert.secret_key_from_numpy(tctx, idx), tctx
+    return J.SecretKey(ctx, idx), convert.secret_key_from_numpy(tctx, idx, device="cpu"), tctx
 
 
 def _fresh(jsk, bits, seed):
@@ -44,7 +44,7 @@ def test_batch_surface_matches_jax(small_ctx):
     np.testing.assert_array_equal(words_to_numpy(tsk.encrypt_batch(bits, 3)), jw)
     jb, jb2 = JBatch.from_fresh(jnp.asarray(jw), small_ctx), JBatch.from_fresh(jnp.asarray(jw2),
                                                                               small_ctx)
-    tb, tb2 = T.CiphertextBatch.from_fresh(words_from_numpy(jw), tctx), \
+    tb, tb2 = T.CiphertextBatch.from_fresh(words_from_numpy(jw, device="cpu"), tctx), \
         T.CiphertextBatch.from_fresh(tsk.encrypt_batch(1 - bits, 4), tctx)
     np.testing.assert_array_equal(words_to_numpy(tb.wt), np.asarray(jb.wt))
     np.testing.assert_array_equal(words_to_numpy(tb.to_fresh()), jw)
@@ -61,7 +61,7 @@ def test_batch_surface_matches_jax(small_ctx):
     assert isinstance(grown[2], T.Ciphertext)
     stacked = T.CiphertextBatch.stack([grown[i] for i in range(grown.batch)])
     assert torch.equal(stacked.wt, grown.wt)
-    back = convert.ciphertext_batch_from_numpy(words_to_numpy(grown.wt), tctx)
+    back = convert.ciphertext_batch_from_numpy(words_to_numpy(grown.wt), tctx, device="cpu")
     assert torch.equal(back.wt, grown.wt)
 
 
@@ -76,7 +76,7 @@ def test_batch_decrypts_match_jax(request, ctx_name):
     for name, bits in [("a", bits_a), ("b", bits_b)]:
         words = [_fresh(jsk, row, 100 + 10 * i + len(name)) for i, row in enumerate(bits)]
         cts[name] = (JBatch(jnp.stack([jnp.asarray(w) for w in words]), ctx),
-                     T.CiphertextBatch.stack([convert.ciphertext_from_numpy(w, tctx)
+                     T.CiphertextBatch.stack([convert.ciphertext_from_numpy(w, tctx, device="cpu")
                                               for w in words]))
     (ja, ta), (jb, tb) = cts["a"], cts["b"]
     xa, xb = bits_a.sum(axis=1) % 2, bits_b.sum(axis=1) % 2
@@ -111,7 +111,7 @@ def test_batched_kernels_match_2d_calls_and_jax(ctx):
     b = rng.integers(0, 2**32, (4, ctx.words32, 130), dtype=np.uint32) & ctx.valid_mask[:, None]
     a[[0, 1, 3], :, 1] |= mask
     b[:, :, [5, 77]] |= mask[:, None]
-    ta, tb, tm = words_from_numpy(a), words_from_numpy(b), words_from_numpy(mask)
+    ta, tb, tm = (words_from_numpy(x, "cpu") for x in (a, b, mask))
 
     prod = dispatch.mul_chunks_batched(ta, tb)
     jprod, jmajor, zpa, zpb = jdispatch.mul_chunks_batched(jnp.asarray(a), jnp.asarray(b))
@@ -138,7 +138,8 @@ def test_batch_permutations_match_jax(ctx):
     jsk, tsk, tctx = _keys(ctx, 4)
     rng = np.random.default_rng(6)
     words = rng.integers(0, 2**32, (3, ctx.words32, 9), dtype=np.uint32) & ctx.valid_mask[:, None]
-    jb, tb = JBatch(jnp.asarray(words), ctx), convert.ciphertext_batch_from_numpy(words, tctx)
+    jb = JBatch(jnp.asarray(words), ctx)
+    tb = convert.ciphertext_batch_from_numpy(words, tctx, "cpu")
     perms = [rng.permutation(ctx.n) for _ in range(3)]
     jps = [J.Permutation(p) for p in perms]
     tps = [convert.permutation_from_numpy(p) for p in perms]

@@ -26,7 +26,7 @@ class Pair:
         idx = self.rng.choice(ctx.n, ctx.d, replace=False).astype(np.int32)
         self.ctx, self.tctx = ctx, T.Context(ctx.n, ctx.d)
         self.jsk = J.SecretKey(ctx, idx)
-        self.tsk = convert.secret_key_from_numpy(self.tctx, idx)
+        self.tsk = convert.secret_key_from_numpy(self.tctx, idx, device="cpu")
         self.seed = seed
 
     def words(self, bits):
@@ -36,12 +36,14 @@ class Pair:
 
     def ct(self, bits):
         w = self.words(bits)
-        return J.Ciphertext(jnp.asarray(w), self.ctx), convert.ciphertext_from_numpy(w, self.tctx)
+        return (J.Ciphertext(jnp.asarray(w), self.ctx),
+                convert.ciphertext_from_numpy(w, self.tctx, "cpu"))
 
     def batch(self, bits_bc):
         """Batch leaves: element e holds bits_bc[e] as its chunks."""
         w = np.stack([self.words(row) for row in bits_bc])
-        return JBatch(jnp.asarray(w), self.ctx), convert.ciphertext_batch_from_numpy(w, self.tctx)
+        return (JBatch(jnp.asarray(w), self.ctx),
+                convert.ciphertext_batch_from_numpy(w, self.tctx, "cpu"))
 
 
 def _dag(lift, a, b, c):
@@ -165,7 +167,7 @@ def test_fleet_guards(small_ctx):
     for lift, x, s in ((jc.lift, jx, js), (tc.lift, tx, ts)):
         with pytest.raises(ValueError, match="cannot materialize a fleet DAG with scalar"):
             (lift(x) + s).materialize()
-    other = T.SecretKey(T.Context(100, 4), [1, 2, 3, 4])
+    other = T.SecretKey(T.Context(100, 4), [1, 2, 3, 4], device="cpu")
     with pytest.raises(ValueError, match="context mismatch"):
         other.decrypt_circuits([tc.lift(tx) * tx])
     with pytest.raises(ValueError, match="context mismatch"):

@@ -135,9 +135,11 @@ def test_launch_counters_count_kernel_launches(dev):
     kernels.chunk_matches(b.wt, sk.mask_words)
     # Every product above has t1*t2 % 4 == 0, so the multiply's aligned mode
     # serves it; the unaligned and tiled modes count under their own keys.
+    # The Philox engine, its stream dump and the write anchor are not called.
+    unused = ("encrypt_bits_philox", "philox_streams", "fill_anchor")
     for name in before:
-        want = before[name] + (0 if name.endswith(("_unaligned", "_tiled", "_unaligned_batched",
-                                                    "_tiled_batched")) else 1)
+        want = before[name] + (0 if name in unused or name.endswith((
+            "_unaligned", "_tiled", "_unaligned_batched", "_tiled_batched")) else 1)
         assert kernels.LAUNCHES[name] == want, name
 
 
@@ -390,3 +392,57 @@ def test_chain_circuit_and_serve_on_card_equal_cpu(dev):
         else:
             assert x == y
     assert cpu[2] == 1 and cpu[7] == 1
+
+
+# ---------------------------------------------------------------------------
+# The Philox engine (K7), its stream dump (K13) and the write anchor (K5)
+# ---------------------------------------------------------------------------
+
+
+def _philox_operands(w, d, dev, seed):
+    """Key operands at any W (W = 3 has no Context: a raw 3-word mask)."""
+    n = 32 * w - 1
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(n, d, replace=False).astype(np.int32)
+    from csgn_tpu_torch.layout import bit_positions_to_mask
+
+    mask = bit_positions_to_mask(idx, n)[:w]
+    valid = bit_positions_to_mask(np.arange(n), n)[:w]
+    return (torch.from_numpy(idx).to(dev), words_from_numpy(mask, dev),
+            words_from_numpy(valid, dev))
+
+
+@pytest.mark.parametrize("w", [3, 4, 7, 40, 128])
+@pytest.mark.parametrize("d", [4, 16, 32])
+@pytest.mark.parametrize("batch", [1, 255, 257, 4099])
+def test_philox_k7_k13_match_plain(dev, w, d, batch):
+    """Rows W and W + 1 straddle two Philox groups at W % 4 == 3."""
+    ops = _philox_operands(w, d, dev, w * 100 + d)
+    bits = torch.from_numpy(np.random.default_rng(batch).integers(0, 2, batch)).to(dev)
+    seed = (0xC0FFEE << 32) | batch
+    got = encrypt_kernels.encrypt_bits_philox(seed, bits, *ops)
+    assert torch.equal(got, encrypt_kernels.encrypt_bits_philox_plain(seed, bits, *ops))
+    m = ops[1]
+    assert torch.equal(kernels.chunk_matches(got, m), bits.to(torch.int32))
+    assert not (got & ~ops[2][:, None]).any()
+    rows = encrypt_kernels.philox_streams(seed, batch, w + 2, dev)
+    want = encrypt_kernels.philox_streams_plain(seed, batch, w + 2, dev).to(torch.int32)
+    assert torch.equal(rows, want)
+    assert torch.equal(encrypt_kernels.derive_words(rows.long() & 0xFFFFFFFF, bits, *ops), got)
+
+
+def test_philox_engine_through_the_key_on_card_equals_cpu(dev):
+    idx = np.random.default_rng(4).choice(CTX.n, CTX.d, replace=False)
+    bits = np.random.default_rng(5).integers(0, 2, 1000)
+    out = [SecretKey(CTX, idx, device).encrypt_batch(bits, 77, engine="philox").cpu()
+           for device in ("cpu", dev)]
+    assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.parametrize("t1,t2,w", [(1, 1, 40), (4, 4, 40), (3, 5, 40), (1021, 16411, 4),
+                                     (64, 64, 128), (7, 9, 1)])
+def test_fill_anchor_k5_matches_plain(dev, t1, t2, w):
+    before = kernels.LAUNCHES["fill_anchor"]
+    got = kernels.fill_anchor(0x1_8000_0001, t1, t2, w, dev)
+    assert torch.equal(got, kernels.fill_anchor_plain(0x1_8000_0001, t1, t2, w, dev))
+    assert kernels.LAUNCHES["fill_anchor"] == before + 1

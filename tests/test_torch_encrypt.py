@@ -22,7 +22,8 @@ def _key(ctx, seed):
 
 
 def _port_args(ctx, idx, mask):
-    return (torch.from_numpy(idx), words_from_numpy(mask), words_from_numpy(ctx.valid_mask))
+    return (torch.from_numpy(idx), words_from_numpy(mask, "cpu"),
+            words_from_numpy(ctx.valid_mask, "cpu"))
 
 
 def test_int64_to_int32_cast_wraps():
@@ -71,7 +72,7 @@ def test_counter_encrypt_matches_ref(request, ctx_name, batch, seed):
     wrapped = ek.encrypt_bits_counter(seed, torch.from_numpy(bits), *args)
     np.testing.assert_array_equal(words_to_numpy(wrapped), want)
     # Invariants: decrypt round trip and zero padding bits.
-    m = words_from_numpy(mask)
+    m = words_from_numpy(mask, device="cpu")
     np.testing.assert_array_equal(kernels.chunk_matches(wrapped, m).numpy(), bits)
     assert not np.any(words_to_numpy(wrapped) & ~ctx.valid_mask[:, None])
 

@@ -36,7 +36,9 @@ def test_import_pulls_in_no_jax():
         "csgn_tpu_torch.serve, csgn_tpu_torch.models, csgn_tpu_torch.models.netlist, "
         "csgn_tpu_torch.models.aes, csgn_tpu_torch.models.sha256, "
         "csgn_tpu_torch.models.circuits, csgn_tpu_torch.models.linear, "
-        "csgn_tpu_torch.models.lookup; "
+        "csgn_tpu_torch.models.lookup, csgn_tpu_torch.cli, csgn_tpu_torch.config, "
+        "csgn_tpu_torch.io, csgn_tpu_torch.utils.timing, csgn_tpu_torch.utils.checks, "
+        "csgn_tpu_torch.tools.enc_stats; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'csgn_tpu.')) "
         "or m == 'csgn_tpu'); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -46,13 +48,13 @@ def test_import_pulls_in_no_jax():
 
 def _words(chunks, seed=0):
     rng = np.random.default_rng(seed)
-    return words_from_numpy(rng.integers(0, 2**32, (CTX.words32, chunks), dtype=np.uint32))
+    return words_from_numpy(rng.integers(0, 2**32, (CTX.words32, chunks), dtype=np.uint32), "cpu")
 
 
 @pytest.mark.parametrize("fn", ["mul_chunks", "mul_decrypt"])
 def test_mul_wrappers_reject_bad_operands(fn):
     a, b = _words(3), _words(4, 1)
-    mask = words_from_numpy(CTX.valid_mask)
+    mask = words_from_numpy(CTX.valid_mask, device="cpu")
     call = (lambda x, y, m=mask: kernels.mul_decrypt(x, y, m)) if fn == "mul_decrypt" \
         else (lambda x, y: kernels.mul_chunks(x, y))
     with pytest.raises(TypeError, match="int32"):
@@ -74,7 +76,7 @@ def test_mul_wrappers_reject_bad_operands(fn):
 
 @pytest.mark.parametrize("fn", ["decrypt_parity", "chunk_matches"])
 def test_decrypt_wrappers_reject_bad_operands(fn):
-    words, mask = _words(5), words_from_numpy(CTX.valid_mask)
+    words, mask = _words(5), words_from_numpy(CTX.valid_mask, device="cpu")
     call = getattr(kernels, fn)
     with pytest.raises(TypeError, match="int32"):
         call(words, mask.to(torch.int64))
@@ -85,7 +87,7 @@ def test_decrypt_wrappers_reject_bad_operands(fn):
 
 
 def test_encrypt_wrapper_rejects_bad_operands():
-    sk = SecretKey(CTX, [1, 5, 9, 70])
+    sk = SecretKey(CTX, [1, 5, 9, 70], device="cpu")
     idx, mask, valid = sk.encrypt_operands
     good = (torch.tensor([1, 0]), idx, mask, valid)
     assert encrypt_kernels.encrypt_bits_counter(1, *good).shape == (CTX.words32, 2)
@@ -101,8 +103,62 @@ def test_encrypt_wrapper_rejects_bad_operands():
         encrypt_kernels.encrypt_bits_counter(1, *good[:3], valid[:-1])
 
 
+def test_philox_wrappers_reject_bad_operands():
+    sk = SecretKey(CTX, [1, 5, 9, 70], device="cpu")
+    idx, mask, valid = sk.encrypt_operands
+    good = (torch.tensor([1, 0]), idx, mask, valid)
+    assert encrypt_kernels.encrypt_bits_philox(1, *good).shape == (CTX.words32, 2)
+    with pytest.raises(TypeError, match="encrypt_bits_philox: key_idx must be int32"):
+        encrypt_kernels.encrypt_bits_philox(1, good[0], idx.long(), *good[2:])
+    with pytest.raises(ValueError, match="device"):
+        encrypt_kernels.encrypt_bits_philox(1, good[0].to("meta"), *good[1:])
+    with pytest.raises(ValueError, match="valid_mask"):
+        encrypt_kernels.encrypt_bits_philox(1, *good[:3], valid[:-1])
+    with pytest.raises(ValueError, match="batch"):
+        encrypt_kernels.philox_streams(1, -1, 6, device="cpu")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        encrypt_kernels.philox_streams(1, 4, 6, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        kernels.fill_anchor(1, 2, 3, 4, device="meta")
+    with pytest.raises(ValueError, match="negative"):
+        kernels.fill_anchor(1, -2, 3, 4, device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """Without a device, the constructors and converters land on the current
+    CUDA device; on a machine without one they raise, naming device="cpu",
+    and never fall back to the CPU."""
+    from csgn_tpu_torch import convert, layout
+    from csgn_tpu_torch.ops import encrypt_kernels as ek
+
+    words = np.zeros((CTX.words32, 2), np.uint32)
+    calls = [
+        lambda: SecretKey(CTX, [1, 5, 9, 70]),
+        lambda: SecretKey.generate(CTX, torch.Generator().manual_seed(0)),
+        lambda: Ciphertext.from_u64(np.zeros(2 * CTX.words64, np.uint64), CTX),
+        lambda: Ciphertext.from_chunk_major(words.T, CTX),
+        lambda: convert.secret_key_from_numpy(CTX, [1, 5, 9, 70]),
+        lambda: convert.ciphertext_from_numpy(words, CTX),
+        lambda: convert.ciphertext_batch_from_numpy(words[None], CTX),
+        lambda: layout.words_from_numpy(words),
+        lambda: ek.philox_streams(1, 4, 6),
+        lambda: kernels.fill_anchor(1, 2, 2, 4),
+    ]
+    if torch.cuda.is_available():
+        sk = calls[0]()
+        assert sk.device.type == "cuda" and sk.mask_words.is_cuda
+        for call in calls[1:]:
+            out = call()
+            dev = getattr(out, "device", None) or out.wt.device
+            assert dev.type == "cuda"
+    else:
+        for call in calls:
+            with pytest.raises(RuntimeError, match='pass device="cpu" to run on the CPU'):
+                call()
+
+
 def test_decrypt_batch_guards():
-    sk = SecretKey(CTX, [1, 5, 9, 70])
+    sk = SecretKey(CTX, [1, 5, 9, 70], device="cpu")
     words = sk.encrypt_batch([1, 0, 1, 1, 0, 1], 3)
     assert sk.decrypt_batch(words).tolist() == [1, 0, 1, 1, 0, 1]
     with pytest.raises(ValueError, match="transposed"):
@@ -119,7 +175,7 @@ def test_decrypt_batch_guards():
 
 def test_benes_wrappers_reject_bad_operands():
     plan = Permutation.random(CTX, torch.Generator().manual_seed(0)).benes_plan()
-    words, mask = _words(5), words_from_numpy(CTX.valid_mask)
+    words, mask = _words(5), words_from_numpy(CTX.valid_mask, device="cpu")
     stacked = pb.stack_plans([plan, plan])
     assert benes_kernels.apply_benes(words, plan).shape == words.shape
     with pytest.raises(TypeError, match="int32"):
@@ -144,13 +200,13 @@ def test_benes_wrappers_reject_bad_operands():
 
 def test_key_and_ciphertext_guards():
     with pytest.raises(ValueError, match="distinct"):
-        SecretKey(CTX, [1, 1, 2, 3])
+        SecretKey(CTX, [1, 1, 2, 3], device="cpu")
     with pytest.raises(ValueError, match="range"):
-        SecretKey(CTX, [1, 2, 3, 95])
-    sk = SecretKey(CTX, [1, 5, 9, 70])
+        SecretKey(CTX, [1, 2, 3, 95], device="cpu")
+    sk = SecretKey(CTX, [1, 5, 9, 70], device="cpu")
     with pytest.raises(ValueError, match=r"\[W=4, chunks\]"):
         Ciphertext(sk.encrypt_batch([1], 1).t().contiguous(), CTX)
-    other = SecretKey(Context(1247, 16), np.arange(16))
+    other = SecretKey(Context(1247, 16), np.arange(16), device="cpu")
     with pytest.raises(ValueError, match="context"):
         other.decrypt(sk.encrypt(1, 1))
 

@@ -8,6 +8,7 @@ fixed seeds and handed to both packages.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from csgn_tpu import layout as jl
 from csgn_tpu.ops import core as jcore
@@ -33,9 +34,9 @@ def test_mul_chunks_matches_pallas(ctx, t1, t2):
     want = np.asarray(jk.mul_chunks_pallas(jnp.asarray(a), jnp.asarray(b)))
     np.testing.assert_array_equal(
         want, np.asarray(jcore.mul_chunks(jnp.asarray(a), jnp.asarray(b))))
-    got = kernels.mul_chunks(words_from_numpy(a), words_from_numpy(b))
+    got = kernels.mul_chunks(words_from_numpy(a, device="cpu"), words_from_numpy(b, device="cpu"))
     np.testing.assert_array_equal(words_to_numpy(got), want)
-    got = dispatch.mul_chunks(words_from_numpy(a), words_from_numpy(b))
+    got = dispatch.mul_chunks(words_from_numpy(a, device="cpu"), words_from_numpy(b, device="cpu"))
     np.testing.assert_array_equal(words_to_numpy(got), want)
 
 
@@ -54,7 +55,7 @@ def test_mul_decrypt_matches_pallas(ctx, t1, t2, fa, fb):
     want_prod, want_parity = jk.mul_decrypt_pallas(ja, jb, jm)
     _, want_count = jk.mul_decrypt_pallas(ja, jb, jm, return_count=True)
 
-    ta, tb, tm = words_from_numpy(a), words_from_numpy(b), words_from_numpy(mask)
+    ta, tb, tm = (words_from_numpy(x, "cpu") for x in (a, b, mask))
     prod, parity = kernels.mul_decrypt(ta, tb, tm)
     _, count = kernels.mul_decrypt(ta, tb, tm, return_count=True)
     np.testing.assert_array_equal(words_to_numpy(prod), np.asarray(want_prod))
@@ -73,7 +74,7 @@ def test_decrypt_matches_pallas(ctx, chunks):
     words = _words(rng, chunks, ctx)
     words[:, rng.choice(chunks, size=(chunks + 1) // 2, replace=False)] |= mask[:, None]
     want = int(jk.decrypt_parity_pallas(jnp.asarray(words), jnp.asarray(mask)))
-    tw, tm = words_from_numpy(words), words_from_numpy(mask)
+    tw, tm = words_from_numpy(words, device="cpu"), words_from_numpy(mask, device="cpu")
     assert int(kernels.decrypt_parity(tw, tm)) == want
     assert int(dispatch.decrypt_parity(tw, tm)) == want
     want_bits = np.asarray(jcore.chunk_matches(jnp.asarray(words), jnp.asarray(mask)))
@@ -91,7 +92,7 @@ def test_core_oracles_match_jax(small_ctx, lead):
     a = rng.integers(0, 2**32, size=full, dtype=np.uint32)
     b = rng.integers(0, 2**32, size=full, dtype=np.uint32)
     a[..., :2] |= mask[:, None]
-    ta, tb, tm = words_from_numpy(a), words_from_numpy(b), words_from_numpy(mask)
+    ta, tb, tm = (words_from_numpy(x, "cpu") for x in (a, b, mask))
     ja, jb, jm = jnp.asarray(a), jnp.asarray(b), jnp.asarray(mask)
     np.testing.assert_array_equal(words_to_numpy(tcore.add_chunks(ta, tb)),
                                   np.asarray(jcore.add_chunks(ja, jb)))
@@ -101,3 +102,18 @@ def test_core_oracles_match_jax(small_ctx, lead):
                                   np.asarray(jcore.chunk_matches(ja, jm)))
     np.testing.assert_array_equal(tcore.decrypt_parity(ta, tm).numpy(),
                                   np.asarray(jcore.decrypt_parity(ja, jm)))
+
+
+@pytest.mark.parametrize("t1,t2,w", [(1, 128, 4), (5, 256, 40), (3, 7, 4)])
+def test_fill_anchor_matches_pallas(t1, t2, w):
+    """K5's plain version against `fill_anchor_pallas` (interpret mode) on
+    the first t1*t2 columns (the Pallas fill pads t1 up to its block; the
+    port's fill, like its K1, writes no pad columns)."""
+    seed = 0x9ABCDEF0
+    want = np.asarray(jk.fill_anchor_pallas(jnp.asarray([seed], jnp.uint32), t1, t2, w))
+    assert want.shape[1] >= t1 * t2
+    got = kernels.fill_anchor(seed, t1, t2, w, device="cpu")
+    assert got.shape == (w, t1 * t2)
+    np.testing.assert_array_equal(words_to_numpy(got), want[:, :t1 * t2])
+    # Only the seed's low 32 bits fill.
+    assert torch.equal(kernels.fill_anchor((7 << 32) | seed, t1, t2, w, device="cpu"), got)

@@ -42,7 +42,7 @@ def test_pack_unpack_bits_wc_match_jax(n):
 def test_numpy_crossing_is_bit_identical():
     """uint32 words with the top bit set survive the int32 view both ways."""
     a = np.array([[0, 1, 0x7FFFFFFF], [0x80000000, 0xDEADBEEF, 0xFFFFFFFF]], dtype=np.uint32)
-    t = tl.words_from_numpy(a)
+    t = tl.words_from_numpy(a, device="cpu")
     assert t.dtype == torch.int32 and t[1, 0].item() == -(2**31)
     back = tl.words_to_numpy(t)
     assert back.dtype == np.uint32

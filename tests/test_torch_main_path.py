@@ -24,7 +24,7 @@ SCENARIOS = json.loads(GOLDEN.read_text())["scenarios"]
 def _both(ctx_j, seed):
     idx = np.random.default_rng(seed).choice(ctx_j.n, ctx_j.d, replace=False).astype(np.int32)
     tctx = T.Context(ctx_j.n, ctx_j.d)
-    return J.SecretKey(ctx_j, idx), convert.secret_key_from_numpy(tctx, idx), tctx
+    return J.SecretKey(ctx_j, idx), convert.secret_key_from_numpy(tctx, idx, device="cpu"), tctx
 
 
 @pytest.mark.parametrize("ctx_name", ["ctx", "small_ctx"])
@@ -45,7 +45,7 @@ def test_port_equals_jax_on_the_main_path(request, ctx_name, t1, t2):
     np.testing.assert_array_equal(convert.words_to_numpy(tw2), jw2)
 
     j1, j2 = J.Ciphertext(jnp.asarray(jw1), ctx), J.Ciphertext(jnp.asarray(jw2), ctx)
-    c1, c2 = T.Ciphertext(tw1, tctx), convert.ciphertext_from_numpy(jw2, tctx)
+    c1, c2 = T.Ciphertext(tw1, tctx), convert.ciphertext_from_numpy(jw2, tctx, device="cpu")
     np.testing.assert_array_equal((c1 + c2).to_u64(), (j1 + j2).to_u64())
     np.testing.assert_array_equal((c1 * c2).to_u64(), (j1 * j2).to_u64())
 
@@ -67,7 +67,7 @@ def sc(request):
 
 
 def _import_ct(sc, name, ctx):
-    return T.Ciphertext.from_u64(np.array([int(x) for x in sc[name]], dtype=np.uint64), ctx)
+    return T.Ciphertext.from_u64(np.array([int(x) for x in sc[name]], dtype=np.uint64), ctx, "cpu")
 
 
 def _words64(strs):
@@ -90,7 +90,7 @@ def test_golden_add_mul_bit_exact(sc):
 
 def test_golden_decrypt_bit_exact(sc):
     ctx = T.Context(sc["n"], sc["d"])
-    sk = T.SecretKey(ctx, np.array(sc["key"], dtype=np.int32))
+    sk = T.SecretKey(ctx, np.array(sc["key"], dtype=np.int32), device="cpu")
     for name in ["c1", "c0", "added", "multiplied", "big", "bigger", "biggest"]:
         assert int(sk.decrypt(_import_ct(sc, name, ctx))) == sc["dec"][name], name
     _, parity = sk.mul_and_decrypt(_import_ct(sc, "added", ctx), _import_ct(sc, "added", ctx))
@@ -103,22 +103,22 @@ def test_ciphertext_surface_matches_jax(ctx):
     jw = np.asarray(jsk.encrypt_batch(jnp.asarray([1, 0, 1], dtype=jnp.uint8), 5,
                                       engine="counter"))
     j = J.Ciphertext(jnp.asarray(jw), ctx)
-    t = convert.ciphertext_from_numpy(jw, tctx)
+    t = convert.ciphertext_from_numpy(jw, tctx, device="cpu")
     assert t.canonical() is t
     assert (t.chunks, t.nbytes, t.size(), t.bitlen) == (j.chunks, j.nbytes, j.size(), j.bitlen)
     assert t.bit_string() == j.bit_string()
     np.testing.assert_array_equal(t.chunk_major(), j.chunk_major())
     u64 = j.to_u64()
-    np.testing.assert_array_equal(T.Ciphertext.from_u64(u64, tctx).to_u64(), u64)
+    np.testing.assert_array_equal(T.Ciphertext.from_u64(u64, tctx, device="cpu").to_u64(), u64)
     np.testing.assert_array_equal(
-        T.Ciphertext.from_chunk_major(j.chunk_major(), tctx).to_u64(), u64)
+        T.Ciphertext.from_chunk_major(j.chunk_major(), tctx, device="cpu").to_u64(), u64)
     assert (tsk.size(), str(tsk)) == (jsk.size(), str(jsk))
     np.testing.assert_array_equal(tsk.mask, jsk.mask)
 
 
 def test_key_side_helpers(small_ctx):
     tctx = T.Context(small_ctx.n, small_ctx.d)
-    sk = T.SecretKey.generate(tctx, torch.Generator().manual_seed(0))
+    sk = T.SecretKey.generate(tctx, torch.Generator().manual_seed(0), device="cpu")
     assert len(set(sk.indices.tolist())) == tctx.d
     one, zero = sk.encrypt(T.Plaintext(1), 1), sk.encrypt(0, 2)
     assert (int(sk.decrypt(one)), int(sk.decrypt(zero))) == (1, 0)

@@ -35,7 +35,7 @@ def _operands(ctx, t1, t2, seed):
 
 
 def _port(a, b, mask):
-    ta, tb, tm = words_from_numpy(a), words_from_numpy(b), words_from_numpy(mask)
+    ta, tb, tm = (words_from_numpy(x, "cpu") for x in (a, b, mask))
     prod = words_to_numpy(kernels.mul_chunks(ta, tb))
     prod2, count = kernels.mul_decrypt(ta, tb, tm, return_count=True)
     _, parity = kernels.mul_decrypt(ta, tb, tm)
@@ -85,11 +85,11 @@ def test_ragged_k11_matches_port_without_pads():
 def test_dispatch_envelope_at_w40(ctx, t1, t2):
     """csgn_tpu's canonical dispatch against the port's at Context(1247, 16)."""
     a, b, mask = _operands(ctx, t1, t2, t1 + t2)
-    prod = dispatch.mul_chunks(words_from_numpy(a), words_from_numpy(b))
+    prod = dispatch.mul_chunks(words_from_numpy(a, device="cpu"), words_from_numpy(b, device="cpu"))
     np.testing.assert_array_equal(words_to_numpy(prod),
                                   np.asarray(jdispatch.mul_chunks(jnp.asarray(a), jnp.asarray(b))))
-    prod2, parity = dispatch.mul_decrypt(words_from_numpy(a), words_from_numpy(b),
-                                         words_from_numpy(mask))
+    prod2, parity = dispatch.mul_decrypt(words_from_numpy(a, "cpu"), words_from_numpy(b, "cpu"),
+                                         words_from_numpy(mask, device="cpu"))
     jprod, jparity = jdispatch.mul_decrypt(jnp.asarray(a), jnp.asarray(b), jnp.asarray(mask))
     np.testing.assert_array_equal(words_to_numpy(prod2), np.asarray(jprod))
     assert int(parity) == int(jparity)

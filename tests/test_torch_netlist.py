@@ -80,7 +80,7 @@ def test_eval_plain_and_packed_match_jax():
 def _keys(ctx, seed):
     idx = np.random.default_rng(seed).choice(ctx.n, ctx.d, replace=False).astype(np.int32)
     tctx = T.Context(ctx.n, ctx.d)
-    return J.SecretKey(ctx, idx), convert.secret_key_from_numpy(tctx, idx), tctx
+    return J.SecretKey(ctx, idx), convert.secret_key_from_numpy(tctx, idx, device="cpu"), tctx
 
 
 def _words(jsk, bits, seed):
@@ -94,7 +94,8 @@ def test_eval_homomorphic_and_batch_match_jax(small_ctx):
     jsk, tsk, tctx = _keys(small_ctx, 2)
     nl_t, nl_j = tn.comparator_gt(3), jn.comparator_gt(3)
     one = _words(jsk, [1, 1, 1], 40)                       # a 3-chunk encryption of 1
-    jone, tone = J.Ciphertext(jnp.asarray(one), small_ctx), convert.ciphertext_from_numpy(one, tctx)
+    jone = J.Ciphertext(jnp.asarray(one), small_ctx)
+    tone = convert.ciphertext_from_numpy(one, tctx, "cpu")
     bits = np.random.default_rng(0).integers(0, 2, (4, 2, 3))   # 4 requests
     bits[0] = [[1, 1, 0], [0, 1, 0]]                           # 3 > 2
     w = [[_words(jsk, bits[r, v], 100 + 10 * r + v) for v in range(2)] for r in range(4)]
@@ -104,7 +105,8 @@ def test_eval_homomorphic_and_batch_match_jax(small_ctx):
 
     for r in range(4):
         jin = [wires(r, v, lambda x: J.Ciphertext(jnp.asarray(x), small_ctx)) for v in range(2)]
-        tin = [wires(r, v, lambda x: convert.ciphertext_from_numpy(x, tctx)) for v in range(2)]
+        tin = [wires(r, v, lambda x: convert.ciphertext_from_numpy(x, tctx, "cpu"))
+               for v in range(2)]
         (jout,) = jn.eval_homomorphic(nl_j, jin, jm.Gates(jone))[0]
         (tout,) = tn.eval_homomorphic(nl_t, tin, tm.Gates(tone))[0]
         np.testing.assert_array_equal(tout.to_u64(), jout.to_u64())
@@ -114,7 +116,7 @@ def test_eval_homomorphic_and_batch_match_jax(small_ctx):
     jin = [[JBatch(jnp.asarray(np.stack([w[r][v][:, k:k + 1] for r in range(4)])), small_ctx)
             for k in range(3)] for v in range(2)]
     tin = [[convert.ciphertext_batch_from_numpy(np.stack([w[r][v][:, k:k + 1]
-                                                          for r in range(4)]), tctx)
+                                                          for r in range(4)]), tctx, device="cpu")
             for k in range(3)] for v in range(2)]
     (jb,) = jn.eval_homomorphic_batch(nl_j, jin, jone)[0]
     (tb,) = tn.eval_homomorphic_batch(nl_t, tin, tone)[0]
@@ -134,12 +136,12 @@ def test_budget_refusal_names_both_knobs(small_ctx):
                 for v in range(2)]
     nl_t, nl_j = tn.adder(4), jn.adder(4)
     jin = [[J.Ciphertext(jnp.asarray(x), small_ctx) for x in v] for v in inputs_w]
-    tin = [[convert.ciphertext_from_numpy(x, tctx) for x in v] for v in inputs_w]
+    tin = [[convert.ciphertext_from_numpy(x, tctx, device="cpu") for x in v] for v in inputs_w]
     with pytest.raises(ValueError, match="budget") as jerr:
         jn.eval_homomorphic(nl_j, jin, jm.Gates(J.Ciphertext(jnp.asarray(one), small_ctx)),
                             budget_bytes=64)
     with pytest.raises(ValueError, match="budget") as terr:
-        tn.eval_homomorphic(nl_t, tin, tm.Gates(convert.ciphertext_from_numpy(one, tctx)),
+        tn.eval_homomorphic(nl_t, tin, tm.Gates(convert.ciphertext_from_numpy(one, tctx, "cpu")),
                             budget_bytes=64)
     assert "netlist_budget_bytes" not in str(jerr.value)
     assert "budget_bytes=" in str(terr.value)
@@ -181,9 +183,9 @@ def test_gates_linear_and_lookup_match_jax(small_ctx):
     cols = _words(jsk, bits, 60)
     one_w = _words(jsk, [1], 61)
     jc = [J.Ciphertext(jnp.asarray(cols[:, k:k + 1]), small_ctx) for k in range(5)]
-    tc = [convert.ciphertext_from_numpy(cols[:, k:k + 1], tctx) for k in range(5)]
+    tc = [convert.ciphertext_from_numpy(cols[:, k:k + 1], tctx, device="cpu") for k in range(5)]
     jg = jm.Gates(J.Ciphertext(jnp.asarray(one_w), small_ctx))
-    tg = tm.Gates(convert.ciphertext_from_numpy(one_w, tctx))
+    tg = tm.Gates(convert.ciphertext_from_numpy(one_w, tctx, device="cpu"))
 
     def same(t, j):
         np.testing.assert_array_equal(t.to_u64(), j.to_u64())
@@ -212,7 +214,7 @@ def test_gates_linear_and_lookup_match_jax(small_ctx):
         abits = [(addr >> k) & 1 for k in range(3)]
         aw = _words(jsk, abits, 200 + addr)
         ja = [J.Ciphertext(jnp.asarray(aw[:, k:k + 1]), small_ctx) for k in range(3)]
-        ta = [convert.ciphertext_from_numpy(aw[:, k:k + 1], tctx) for k in range(3)]
+        ta = [convert.ciphertext_from_numpy(aw[:, k:k + 1], tctx, device="cpu") for k in range(3)]
         t, j = tm.private_lookup(tg, ta, table), jm.private_lookup(jg, ja, table)
         same(t, j)
         assert int(tsk.decrypt(t)) == table[addr]

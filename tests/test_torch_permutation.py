@@ -96,7 +96,7 @@ def test_k8_plain_matches_pallas(n, chunks):
     jx = jnp.asarray(x)
     want = np.asarray(jpb.apply_benes_pallas(jx, jpb.build_plan(perm, n), block_c=128))
 
-    plan, tx = tpb.build_plan(perm, n), words_from_numpy(x)
+    plan, tx = tpb.build_plan(perm, n), words_from_numpy(x, device="cpu")
     np.testing.assert_array_equal(words_to_numpy(benes_kernels.apply_benes(tx, plan)), want)
     np.testing.assert_array_equal(words_to_numpy(dispatch.permute(tx, plan)), want)
     np.testing.assert_array_equal(
@@ -112,7 +112,7 @@ def test_k9_plain_matches_pallas(n, k, chunks):
     jst = jpb.stack_plans([jpb.build_plan(p, n) for p in perms])
     want = np.asarray(jpb.apply_benes_batch_pallas(jnp.asarray(x), jst, block_c=128))
 
-    tst, tx = tpb.stack_plans([tpb.build_plan(p, n) for p in perms]), words_from_numpy(x)
+    tst, tx = tpb.stack_plans([tpb.build_plan(p, n) for p in perms]), words_from_numpy(x, "cpu")
     np.testing.assert_array_equal(words_to_numpy(benes_kernels.apply_benes_batch(tx, tst)), want)
     np.testing.assert_array_equal(words_to_numpy(dispatch.permute_batched_multi(tx, tst)), want)
     # One plan for every element (permute_batched) == element by element.
@@ -127,7 +127,7 @@ def _forced_output_matches(rng, x, perm, mask, n, count):
     """OR into `count` columns of x the mask permuted back through π⁻¹, so
     those columns match `mask` after π."""
     inv = torch.from_numpy(np.argsort(perm))
-    pre = words_to_numpy(tcore.permute_chunks(words_from_numpy(mask[:, None]), inv, n))
+    pre = words_to_numpy(tcore.permute_chunks(words_from_numpy(mask[:, None], "cpu"), inv, n))
     x[:, rng.choice(x.shape[1], count, replace=False)] |= pre[:, 0:1]
 
 
@@ -147,7 +147,8 @@ def test_k12_plain_matches_pallas(n, chunks, forced):
     _, jcnt = jpb.apply_benes_decrypt_pallas(jnp.asarray(x), jplan, jnp.asarray(mask),
                                              block_c=128, return_count=True)
 
-    plan, tx, tm = tpb.build_plan(perm, n), words_from_numpy(x), words_from_numpy(mask)
+    plan = tpb.build_plan(perm, n)
+    tx, tm = words_from_numpy(x, "cpu"), words_from_numpy(mask, "cpu")
     out, par = benes_kernels.apply_benes_decrypt(tx, plan, tm)
     _, cnt = benes_kernels.apply_benes_decrypt(tx, plan, tm, return_count=True)
     np.testing.assert_array_equal(words_to_numpy(out), np.asarray(jout))
@@ -170,14 +171,14 @@ def test_zero_stage_plans(ctx, kind):
     jplan, plan = jpb.build_plan(perm, n), tpb.build_plan(perm, n)
     assert (~plan.masks.any(axis=1)).sum() > 0
     want = np.asarray(jpb.apply_benes_pallas(jnp.asarray(x), jplan, block_c=128))
-    np.testing.assert_array_equal(words_to_numpy(benes_kernels.apply_benes(words_from_numpy(x),
-                                                                           plan)), want)
+    got = benes_kernels.apply_benes(words_from_numpy(x, "cpu"), plan)
+    np.testing.assert_array_equal(words_to_numpy(got), want)
     rnd = rng.permutation(n)
     jst = jpb.stack_plans([jplan, jpb.build_plan(rnd, n)])
     tst = tpb.stack_plans([plan, tpb.build_plan(rnd, n)])
     xb = np.stack([x, x])
     np.testing.assert_array_equal(
-        words_to_numpy(benes_kernels.apply_benes_batch(words_from_numpy(xb), tst)),
+        words_to_numpy(benes_kernels.apply_benes_batch(words_from_numpy(xb, device="cpu"), tst)),
         np.asarray(jpb.apply_benes_batch_pallas(jnp.asarray(xb), jst, block_c=128)))
 
 
@@ -225,7 +226,7 @@ def test_key_transform_and_permute_and_decrypt_match_jax(request, ctx_name):
     idx = rng.choice(ctx.n, ctx.d, replace=False).astype(np.int32)
     perm = rng.permutation(ctx.n)
     jsk, tctx = J.SecretKey(ctx, idx), T.Context(ctx.n, ctx.d)
-    tsk = convert.secret_key_from_numpy(tctx, idx)
+    tsk = convert.secret_key_from_numpy(tctx, idx, device="cpu")
     jp, tp = J.Permutation(perm), T.Permutation(perm)
     jpsk, tpsk = jsk.apply_permutation(jp), tsk.apply_permutation(tp)
     np.testing.assert_array_equal(tpsk.indices, jpsk.indices)
@@ -234,7 +235,7 @@ def test_key_transform_and_permute_and_decrypt_match_jax(request, ctx_name):
 
     bits = np.array([1, 0, 1, 1, 0], np.uint8)  # xor 1
     jw = np.asarray(jsk.encrypt_batch(jnp.asarray(bits), 21, engine="counter"))
-    jct, tct = J.Ciphertext(jnp.asarray(jw), ctx), convert.ciphertext_from_numpy(jw, tctx)
+    jct, tct = J.Ciphertext(jnp.asarray(jw), ctx), convert.ciphertext_from_numpy(jw, tctx, "cpu")
     big = tct * tct + tct + tct   # 35 chunks, decrypt 1 ^ 1 ^ 1 = 1
     jpc = (jct * jct + jct + jct).apply_permutation(jp)
     tpc = big.apply_permutation(tp)
@@ -260,7 +261,7 @@ def sc(request):
 
 
 def _import_ct(sc, name, ctx):
-    return T.Ciphertext.from_u64(np.array([int(x) for x in sc[name]], dtype=np.uint64), ctx)
+    return T.Ciphertext.from_u64(np.array([int(x) for x in sc[name]], dtype=np.uint64), ctx, "cpu")
 
 
 def _words64(strs):
@@ -273,7 +274,7 @@ def test_golden_permutation_bit_exact(sc):
     p = T.Permutation(np.array(sc["perm"], dtype=np.int32))
     np.testing.assert_array_equal(p.inverse().perm, np.array(sc["inv_perm"], dtype=np.int32))
     assert (p + p.inverse()).is_identity()
-    sk = T.SecretKey(ctx, np.array(sc["key"], dtype=np.int32))
+    sk = T.SecretKey(ctx, np.array(sc["key"], dtype=np.int32), device="cpu")
     psk = sk.apply_permutation(p)
     np.testing.assert_array_equal(psk.indices, np.array(sc["permuted_key"], dtype=np.int32))
     pc1 = _import_ct(sc, "c1", ctx).apply_permutation(p)
@@ -288,7 +289,7 @@ def test_golden_composed_permutation_bit_exact(sc):
     p2 = T.Permutation(np.array(sc["perm2"], dtype=np.int32))
     composed = p1 + p2
     np.testing.assert_array_equal(composed.perm, np.array(sc["composed_perm"], dtype=np.int32))
-    sk = T.SecretKey(ctx, np.array(sc["key"], dtype=np.int32))
+    sk = T.SecretKey(ctx, np.array(sc["key"], dtype=np.int32), device="cpu")
     csk = sk.apply_permutation(composed)
     np.testing.assert_array_equal(csk.indices, np.array(sc["composed_key"], dtype=np.int32))
     c1 = _import_ct(sc, "c1", ctx)

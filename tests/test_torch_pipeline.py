@@ -23,7 +23,7 @@ def _chain(ctx, counts, seed, last_bit=1):
     idx = rng.choice(ctx.n, ctx.d, replace=False).astype(np.int32)
     jsk = J.SecretKey(ctx, idx)
     tctx = T.Context(ctx.n, ctx.d)
-    tsk = convert.secret_key_from_numpy(tctx, idx)
+    tsk = convert.secret_key_from_numpy(tctx, idx, device="cpu")
     bits = rng.integers(0, 2, sum(counts)).astype(np.uint8)
     ends = np.cumsum(counts)
     for k, end in enumerate(ends):
@@ -34,7 +34,7 @@ def _chain(ctx, counts, seed, last_bit=1):
     for t, end in zip(counts, ends):
         w = words[:, end - t:end]
         jcts.append(J.Ciphertext(jnp.asarray(w), ctx))
-        tcts.append(convert.ciphertext_from_numpy(w, tctx))
+        tcts.append(convert.ciphertext_from_numpy(w, tctx, device="cpu"))
     return jcts, tcts, jsk, tsk
 
 

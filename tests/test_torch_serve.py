@@ -29,7 +29,7 @@ class Fleet:
         idx = rng.choice(ctx.n, ctx.d, replace=False).astype(np.int32)
         self.ctx, self.tctx = ctx, T.Context(ctx.n, ctx.d)
         self.jsk = J.SecretKey(ctx, idx)
-        self.tsk = convert.secret_key_from_numpy(self.tctx, idx)
+        self.tsk = convert.secret_key_from_numpy(self.tctx, idx, device="cpu")
         self.rng = rng
         self.seed = seed
 
@@ -39,7 +39,8 @@ class Fleet:
             bits[0] ^= int(bits.sum() % 2 != bit)
         self.seed += 1
         w = np.asarray(self.jsk.encrypt_batch(jnp.asarray(bits), self.seed, engine="counter"))
-        return J.Ciphertext(jnp.asarray(w), self.ctx), convert.ciphertext_from_numpy(w, self.tctx)
+        return (J.Ciphertext(jnp.asarray(w), self.ctx),
+                convert.ciphertext_from_numpy(w, self.tctx, "cpu"))
 
     def executors(self, **kw):
         return (J.BatchExecutor(self.jsk, rng=jax.random.key(9), **kw),
@@ -175,7 +176,7 @@ def test_max_batch_and_grouping(fleet):
     with pytest.raises(TypeError):
         tex.submit_decrypt(grown.wt)
     with pytest.raises(ValueError, match="context differs"):
-        tex.submit_decrypt(T.SecretKey(T.Context(100, 4), [1, 2, 3, 4]).encrypt(1, 1))
+        tex.submit_decrypt(T.SecretKey(T.Context(100, 4), [1, 2, 3, 4], device="cpu").encrypt(1, 1))
 
 
 def test_leaf_context_error_fails_only_its_request(fleet):
@@ -187,7 +188,7 @@ def test_leaf_context_error_fails_only_its_request(fleet):
     ow = np.asarray(J.SecretKey(other, np.arange(4, dtype=np.int32)).encrypt_batch(
         jnp.asarray([1], dtype=jnp.uint8), 1, engine="counter"))
     jo = J.Ciphertext(jnp.asarray(ow), other)
-    to = convert.ciphertext_from_numpy(ow, T.Context(100, 4))
+    to = convert.ciphertext_from_numpy(ow, T.Context(100, 4), device="cpu")
     (ja, ta), (jb, tb) = fleet.ct(2, bit=1), fleet.ct(1, bit=1)
     jf = [jex.submit_decrypt_circuit(jlift(ja) * jb), jex.submit_decrypt_circuit(jlift(ja) + jo)]
     tf = [tex.submit_decrypt_circuit(tlift(ta) * tb), tex.submit_decrypt_circuit(tlift(ta) + to)]

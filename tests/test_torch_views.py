@@ -20,10 +20,10 @@ def both(ctx):
     idx = np.random.default_rng(12).choice(ctx.n, ctx.d, replace=False).astype(np.int32)
     jsk = J.SecretKey(ctx, idx)
     tctx = T.Context(ctx.n, ctx.d)
-    tsk = convert.secret_key_from_numpy(tctx, idx)
+    tsk = convert.secret_key_from_numpy(tctx, idx, device="cpu")
     jw = np.asarray(jsk.encrypt_batch(jnp.asarray(BITS), 5, engine="counter"))
     return jsk, tsk, J.Ciphertext(jnp.asarray(jw), ctx), \
-        convert.ciphertext_from_numpy(jw, tctx), tctx
+        convert.ciphertext_from_numpy(jw, tctx, device="cpu"), tctx
 
 
 def test_decrypt_of_a_column_view(both, ctx):
