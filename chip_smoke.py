@@ -13,10 +13,14 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
 [rotate] / [circuit] / [time]:
 
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-  2. build: the CUDA kernels from csgn_tpu_torch/csrc, with the seconds taken;
+  2. build: the CUDA kernels from csgn_tpu_torch/csrc, with the seconds taken,
+     and ptxas's registers and spill bytes and the SASS instruction count of
+     every Beneš and fill kernel (a spill fails the run);
   3. each kernel against its plain torch version on the card, bit-exact, at
      small and ragged shapes and at the main path's full size: K1-K4, the
-     Beneš kernels K8/K9/K12 at n in {20, 100, 1247} and up to 2^20 chunks,
+     Beneš kernels K8/K9/K12 at n in {20, 100, 1247, 4095} and up to 2^20
+     chunks (the register path up to n = 2048, the shared path at 4095, and
+     the shared path forced at n = 1247 against the register path),
      K1-K3 on batched [B, W, C] operands, the Philox encrypt K7 and its
      stream dump K13 at batches {1, 255, 257, 2^22}, W in {3, 40, 128} and
      d in {4, 16, 32}, and the write anchor K5 against torch.full;
@@ -52,9 +56,10 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      (CUDA events, warm-up, median of distinct inputs; nothing is asserted);
      the multiply's modes also against the aligned mode and today's
      4-byte-store walk, and a sweep of b's size for the streaming threshold;
-     K7 against K4, and the write anchor K5 in turns with K1 and with K2
-     (median per-pair ratio anchor ms / kernel ms, the JAX bench's
-     value_vs_anchor).  Every row gets its bound (the larger of its bytes
+     K7 against K4, the Beneš kernel K8 in turns with its shared path forced
+     at n = 1247, and the write anchor K5 in turns with `Tensor.fill_`, then
+     with K1 and with K2 (median per-pair ratio anchor ms / kernel ms, the JAX
+     bench's value_vs_anchor).  Every row gets its bound (the larger of its bytes
      over 3.35 TB/s and its integer operations over 132 SMs x 64 INT32 lanes
      x the SM clock nvidia-smi reports as its maximum) and, where one
      PyTorch call computes the same function, that call's time (library_ms).
@@ -123,7 +128,11 @@ WORKDIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
 # IMAD.WIDE giving mul.hi and mul.lo, and two three-input xors; the key bumps
 # are uniform), so 40 a call; 3 per word of the fix-up.  A generator call is
 # counted once per stream row pair (threefry) or group (Philox), however
-# often a kernel evaluates it again.
+# often a kernel evaluates it again.  A Beneš network costs 6 per nonzero
+# in-word mask word (shift, xor, and, shift, xor, xor) and 4 per nonzero
+# cross-word pair (xor, and, xor, xor) over each stage's live rows of the
+# plan timed (`benes_kernels.network_ops`, per plan for K9), per chunk:
+# 3,266 on a random plan at n = 1247.
 HBM_BYTES_PER_S = 3.35e12
 SMS, INT32_LANES = 132, 64
 THREEFRY_OPS, PHILOX_OPS, FIXUP_OPS = 72, 40, 3
@@ -355,19 +364,23 @@ def check_modes(ctx, sk, gen, dev, errs: dict) -> None:
         del a, b
 
 
-BENES_NS = (20, 100, 1247)
+BENES_NS = (20, 100, 1247, 4095)
 BENES_CHUNKS = (1, 129, 1025, PERM_CHUNKS)
 
 
 def check_benes(gen, pgen, dev, errs: dict) -> None:
     """K8 / K12 at every (n, C), K9 at every (n, k, C), against their plain
-    versions; K12 with matches forced into every 5th column."""
+    versions; K12 with matches forced into every 5th column.  n = 4095 takes
+    the shared path, the others the register path; at n = 1247 and 2^20
+    chunks the shared path is also forced and held to the register path."""
     saw_parity_one = False
     for n in BENES_NS:
         ctx = Context(n, min(16, n // 2))
         sk = SecretKey(ctx, torch.randperm(n, generator=pgen)[:ctx.d].numpy(), device=dev)
         p = Permutation.random(n, pgen)
         plan = p.benes_plan()
+        path = benes_kernels.benes_path(plan.words_pad)
+        require(path == ("shared" if n > 2048 else "register"), f"n={n} routed to {path}")
         key = sk.apply_permutation(p).mask_words   # the OUTPUT's key
         # The key's mask permuted back through p^-1 matches `key` after p.
         pre = core.permute_chunks(key[:, None], torch.tensor(p.inverse().perm), n)
@@ -388,8 +401,18 @@ def check_benes(gen, pgen, dev, errs: dict) -> None:
             require(int(count) >= len(range(0, chunks, 5)), f"K12 missed forced matches "
                     f"at n={n} C={chunks}")
             saw_parity_one |= int(parity) == 1
-            print(f"[check] apply_benes + apply_benes_decrypt n={n} C={chunks}: bit-equal, "
-                  f"count {int(count)} parity {int(parity)}")
+            extra = ""
+            if n == 1247 and chunks == PERM_CHUNKS:
+                old8, _ = benes_kernels._benes_cuda("apply_benes", x, plan, 0, path="shared")
+                old12, old_count = benes_kernels._benes_cuda("apply_benes_decrypt", x, plan, 0,
+                                                             key, path="shared")
+                require(torch.equal(old8, out) and torch.equal(old12, out)
+                        and int(old_count) == int(count),
+                        "the forced shared path != the register path at n=1247")
+                extra = "; forced shared path equal"
+                del old8, old12
+            print(f"[check] apply_benes + apply_benes_decrypt n={n} ({path} path) C={chunks}: "
+                  f"bit-equal, count {int(count)} parity {int(parity)}{extra}")
             del x, out, want_out
         for k in (1, 3, FLEET):
             perms = [Permutation.random(n, pgen) for _ in range(k)]
@@ -401,7 +424,7 @@ def check_benes(gen, pgen, dev, errs: dict) -> None:
                 errs["apply_benes_batch"] = max(errs["apply_benes_batch"], e9)
                 require(e9 == 0, f"K9 disagrees with plain at n={n} k={k} C={chunks}")
                 del x
-            print(f"[check] apply_benes_batch n={n} k={k}: bit-equal at C in "
+            print(f"[check] apply_benes_batch n={n} ({path} path) k={k}: bit-equal at C in "
                   f"{(1, 129, 1025) + ((1 << 14,) if k == FLEET else ())}")
     require(saw_parity_one, "no K12 case had parity 1")
 
@@ -1065,8 +1088,8 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked, bound) -> dic
     ms, pms = time_pair(lambda s: kernels.fill_anchor(s, MAIN_T, MAIN_T, w, dev),
                         lambda s: kernels.fill_anchor_plain(s, MAIN_T, MAIN_T, w, dev), seeds)
     buf = torch.empty((w, MAIN_T * MAIN_T), dtype=torch.int32, device=dev)
-    lib_ms, _ = time_pair(lambda s: buf.fill_(s & 0x7FFFFFFF),
-                          lambda s: kernels.fill_anchor(s, MAIN_T, MAIN_T, w, dev), seeds)
+    lib_ms, k5_ms = time_pair(lambda s: buf.fill_(s & 0x7FFFFFFF),
+                              lambda s: kernels.fill_anchor(s, MAIN_T, MAIN_T, w, dev), seeds)
     del buf
     ratios = {}
     for name, fn in (("mul_chunks", kernels.mul_chunks),
@@ -1075,10 +1098,11 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked, bound) -> dic
         ratios[name] = {"value_vs_anchor": statistics.median(
             a / k for a, k in zip(a_ms, k_ms)), "kernel_ms": k_ms, "anchor_ms": a_ms}
     report("fill_anchor", shape, prod_bytes, ms, pms,
-           f"; anchor / K1 {ratios['mul_chunks']['value_vs_anchor']:.3f}, anchor / K2 "
+           f"; in turns with Tensor.fill_: {k5_ms:.4f} ms against {lib_ms:.4f} ms; anchor / K1 "
+           f"{ratios['mul_chunks']['value_vs_anchor']:.3f}, anchor / K2 "
            f"{ratios['mul_decrypt']['value_vs_anchor']:.3f} (median per pair)",
            bnd=bound(prod_bytes), library_ms=lib_ms)
-    out["fill_anchor"]["value_vs_anchor"] = ratios
+    out["fill_anchor"].update(against_library_ms=k5_ms, value_vs_anchor=ratios)
 
     prods = [(kernels.mul_chunks(x, y),) for x, y in ab]      # DEC_CHUNKS chunks each
     del ab
@@ -1148,15 +1172,24 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked, bound) -> dic
     del fprods
 
     # Beneš kernels at n = 1247: K8 / K12 over 2^20 chunks, K9 over 64 x 2^14.
-    # Bytes are the payload read plus written (K12: read only is the floor).
+    # Bytes are the payload read plus written (K12: read only is the floor);
+    # operations are the timed plans' network_ops per chunk.  K8 also runs
+    # in turns with its shared path forced, the design it replaced at n = 1247.
     plan = p.benes_plan()
     key = sk.apply_permutation(p).mask_words
     xs = [(canon_words(ctx, (w, PERM_CHUNKS), gen, dev),) for _ in range(REPS)]
     pbytes = 2 * w * PERM_CHUNKS * 4
+    pops = benes_kernels.network_ops(plan) * PERM_CHUNKS
+    path = benes_kernels.benes_path(plan.words_pad)
     ms, pms = time_pair(lambda x: benes_kernels.apply_benes(x, plan),
                         lambda x: benes_kernels.apply_benes_plain(x, plan), xs)
+    reg_ms, shared_ms = time_pair(
+        lambda x: benes_kernels.apply_benes(x, plan),
+        lambda x: benes_kernels._benes_cuda("apply_benes", x, plan, 0, path="shared")[0], xs)
     report("apply_benes", f"{w}x{PERM_CHUNKS}", pbytes, ms, pms,
-           f", {PERM_CHUNKS / ms / 1e3:.1f} M chunks/s", bnd=bound(pbytes))
+           f", {PERM_CHUNKS / ms / 1e3:.1f} M chunks/s, {path} path; in turns with the shared "
+           f"path: {reg_ms:.4f} ms against {shared_ms:.4f} ms", bnd=bound(pbytes, pops))
+    out["apply_benes"].update(path=path, against_shared_ms=reg_ms, shared_path_ms=shared_ms)
     ms, pms = time_pair(lambda x: benes_kernels.apply_benes_decrypt(x, plan, key),
                         lambda x: benes_kernels.apply_benes_decrypt_plain(x, plan, key), xs)
     fused_ms, staged_ms = time_pair(
@@ -1164,8 +1197,8 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked, bound) -> dic
         lambda x: kernels.decrypt_parity(benes_kernels.apply_benes(x, plan), key), xs)
     report("apply_benes_decrypt", f"{w}x{PERM_CHUNKS}", pbytes, ms, pms,
            f"; staged K8 + K3 {staged_ms:.4f} ms against fused {fused_ms:.4f} ms in turns",
-           bnd=bound(pbytes + 4 * w + 8))
-    out["apply_benes_decrypt"]["staged_ms"] = staged_ms
+           bnd=bound(pbytes + 4 * w + 8, pops))
+    out["apply_benes_decrypt"].update(staged_ms=staged_ms, fused_ms=fused_ms)
     del xs
     kc = 1 << 14
     xb = [(canon_words(ctx, (stacked.k, w, kc), gen, dev),) for _ in range(REPS)]
@@ -1173,7 +1206,8 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked, bound) -> dic
     ms, pms = time_pair(lambda x: benes_kernels.apply_benes_batch(x, stacked),
                         lambda x: benes_kernels.apply_benes_batch_plain(x, stacked), xb)
     report("apply_benes_batch", f"{stacked.k}x{w}x{kc}", kbytes, ms, pms,
-           f", {stacked.k * kc / ms / 1e3:.1f} M chunks/s", bnd=bound(kbytes))
+           f", {stacked.k * kc / ms / 1e3:.1f} M chunks/s",
+           bnd=bound(kbytes, sum(benes_kernels.network_ops(stacked)) * kc))
     return out
 
 
@@ -1300,6 +1334,15 @@ def main() -> int:
     _build.lib()
     print(f"[build] {_build.library_path().name} from csgn_tpu_torch/csrc in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
+    resources = [r for r in _build.kernel_resources()
+                 if "benes_" in r["kernel"] or "fill_kernel" in r["kernel"]]
+    require(len(resources) == 17, f"ptxas reported {len(resources)} Beneš and fill kernels, "
+            "not 14 register + 2 shared + 1 fill")
+    for r in resources:
+        print(f"[build] {r['kernel']}: {r['registers']} registers, spill stores "
+              f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, "
+              f"{r['sass_instructions']} SASS instructions")
+        require(r["spill_stores"] == 0 and r["spill_loads"] == 0, f"{r['kernel']} spills")
 
     ctx = Context(1247, 16)
     rng = np.random.default_rng(SEED)

@@ -95,8 +95,8 @@ def cmd_timings(cfg: RunConfig, dev: torch.device) -> int:
     plus the reference's size lines.  The device rows time the port's public
     dispatch (on a CUDA device: the kernels) with `device_median_time`.  After
     the multiply, the write anchor (K5, a fill of the product's bytes at the
-    multiply's thread map) and anchor ms / multiply ms, the JAX bench's
-    ``value_vs_anchor``."""
+    card's write floor) and anchor ms / multiply ms, the JAX bench's
+    ``value_vs_anchor``: the multiply's share of the write floor."""
     from csgn_tpu_torch import Ciphertext, Permutation, SecretKey
     from csgn_tpu_torch.ops import core, dispatch, kernels
     from csgn_tpu_torch.utils.metrics import op_metrics

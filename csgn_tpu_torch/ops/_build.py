@@ -5,7 +5,9 @@ all started together, and linked into one shared library with a plain C
 interface, ``build/csgn_tpu_torch/libcsgn_kernels.so`` under the checkout,
 loaded with ctypes.  The build runs at first use and again whenever the
 sources' content hash changes; a missing ``nvcc`` or a failed build raises —
-there is no fallback.
+there is no fallback.  ``ptxas -v``'s report of every kernel (registers,
+spill bytes) is kept beside the library as ``ptxas.log`` and parsed by
+`kernel_resources`.
 
 Calling convention of every C entry: pointers and the stream are
 ``ctypes.c_void_p``, sizes ``ctypes.c_int64``; it returns
@@ -24,14 +26,15 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
 
 import torch
 
-__all__ = ["LAUNCHES", "NVCC_FLAGS", "MAX_GRID_Y", "lib", "library_path", "check", "stream_of",
-           "ptr", "grids"]
+__all__ = ["LAUNCHES", "NVCC_FLAGS", "MAX_GRID_Y", "lib", "library_path", "kernel_resources",
+           "check", "stream_of", "ptr", "grids"]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -39,7 +42,7 @@ _BUILD = _PKG.parent / "build" / "csgn_tpu_torch"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y
@@ -79,8 +82,9 @@ _SIGNATURES = {
     "csgn_mul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # words, mask, out, batch, w, c, per_chunk, vec, stream
     "csgn_decrypt": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, masks, sched, key, out, count, batch, w, c, wp, stages, w_net, plan_stride, stream
-    "csgn_benes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # x, masks, sched, key, out, count, batch, w, c, wp, stages, w_net, plan_stride, path,
+    # stream
+    "csgn_benes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # bits, key_idx, mask, valid, out, w, d, batch, seed_lo, seed_hi, stream
     "csgn_encrypt_counter": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "csgn_encrypt_philox": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -131,11 +135,12 @@ def _build(so: pathlib.Path, stamp: pathlib.Path, digest: str) -> None:
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
             jobs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-        failed = []
+        failed, reports = [], []
         for cmd, _, proc in jobs:  # wait for every compile, then report
             out, err = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+            reports.append(out + err)
         if failed:
             raise RuntimeError("\n".join(failed))
         out_so = str(pathlib.Path(tmp) / so.name)
@@ -146,6 +151,7 @@ def _build(so: pathlib.Path, stamp: pathlib.Path, digest: str) -> None:
                 f"nvcc link failed ({res.returncode}): {' '.join(cmd)}\n{res.stdout}\n{res.stderr}"
             )
         os.replace(out_so, so)  # atomic: a concurrent loader sees old or new
+    so.with_name("ptxas.log").write_text("".join(reports))
     stamp.write_text(digest)
 
 
@@ -166,6 +172,44 @@ def lib() -> ctypes.CDLL:
     handle.csgn_error_string.argtypes = (ctypes.c_int,)
     handle.csgn_error_string.restype = ctypes.c_char_p
     return handle
+
+
+def kernel_resources() -> list[dict]:
+    """Every kernel of the built library as ``ptxas -v`` reported it:
+    ``{"kernel", "registers", "spill_stores", "spill_loads"}`` (bytes), and
+    ``"sass_instructions"`` as ``cuobjdump -sass`` lists them (None where
+    the toolkit has no ``cuobjdump``); names demangled where it has
+    ``cu++filt`` (or ``c++filt``)."""
+    lib()
+    text = library_path().with_name("ptxas.log").read_text()
+    rows, cur = [], None
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            cur = {"kernel": m.group(1), "registers": None, "spill_stores": None,
+                   "spill_loads": None}
+            rows.append(cur)
+        elif cur is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
+            cur["registers"] = int(m.group(1))
+    bindir = str(pathlib.Path(_nvcc()).parent)
+    sizes = {}
+    if dump := shutil.which("cuobjdump", path=bindir):
+        sass = subprocess.run([dump, "-sass", str(library_path())], capture_output=True,
+                              text=True, check=True).stdout
+        for block in sass.split("Function : ")[1:]:
+            name, body = block.split("\n", 1)
+            sizes[name.strip()] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s", body))
+    for r in rows:
+        r["sass_instructions"] = sizes.get(r["kernel"])
+    filt = shutil.which("cu++filt", path=bindir) or shutil.which("c++filt")
+    if filt and rows:
+        res = subprocess.run([filt], input="\n".join(r["kernel"] for r in rows),
+                             capture_output=True, text=True, check=True)
+        for r, name in zip(rows, res.stdout.splitlines()):
+            r["kernel"] = name
+    return rows
 
 
 def check(name: str, err: int) -> None:

@@ -14,10 +14,25 @@ and `apply_benes_decrypt_plain`.  Routing is by the tensors' device, as in
 `ops.kernels`: a CPU tensor goes to the plain version, a CUDA tensor
 launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES[<wrapper name>]``.
+
+csrc/benes.cu has two paths, chosen by the network's width WP = n_pad / 32
+(`benes_path`), both counted under the same ``LAUNCHES`` keys:
+
+  * "register" for WP <= `REGISTER_WORDS_PAD` (64, n <= 2048): each thread
+    keeps its chunk column in registers, the rows unrolled at compile time
+    for each WP in 1, 2, 4, ..., 64;
+  * "shared" for larger networks, up to `MAX_WORDS_PAD`: the column lives
+    in shared memory.
+
+This is routing by shape, not a fallback: a build or launch failure of
+either path raises.  `network_deltas` is the stage sequence every plan of an
+n_pad has, and `network_ops` the integer operations per chunk that bound the
+kernels on the card.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from csgn_tpu_torch.ops import permute_benes as pb
@@ -32,23 +47,64 @@ __all__ = [
     "apply_benes_batch_plain",
     "apply_benes_decrypt",
     "apply_benes_decrypt_plain",
+    "benes_path",
+    "network_deltas",
+    "network_ops",
+    "MAX_WORDS_PAD",
+    "REGISTER_WORDS_PAD",
 ]
 
 apply_benes_plain = pb.apply_benes
 apply_benes_batch_plain = pb.apply_benes_batch
 apply_benes_decrypt_plain = pb.apply_benes_decrypt_plain
 
-# Shared memory holds one chunk column of the network per thread (WP words)
-# plus the plan's masks (S x WP words); csrc/benes.cu fits both, with at
-# least 32 columns per block, up to this width (n <= 16384).
+# The register path holds a chunk column of WP words in registers (64 of a
+# thread's 255 at WP = 64, with no spills); wider networks take the shared
+# path, whose block holds one column per thread (WP words) plus the plan's
+# masks (S x WP words) in shared memory, with at least 32 columns per block,
+# up to MAX_WORDS_PAD (n <= 16384).
+REGISTER_WORDS_PAD = 64
 MAX_WORDS_PAD = 512
+_PATH_CODES = {"register": 0, "shared": 1}
+
+
+def benes_path(words_pad: int) -> str:
+    """The path of csrc/benes.cu for a network of `words_pad` words:
+    "register" up to `REGISTER_WORDS_PAD`, "shared" up to `MAX_WORDS_PAD`."""
+    if words_pad > MAX_WORDS_PAD:
+        raise ValueError(f"n_pad {words_pad * 32} exceeds the Beneš kernel's "
+                         f"{MAX_WORDS_PAD * 32}-bit network")
+    return "register" if words_pad <= REGISTER_WORDS_PAD else "shared"
+
+
+def network_deltas(n_pad: int) -> tuple[int, ...]:
+    """The stage deltas of every Beneš plan on `n_pad` bits: 1, 2, ...,
+    n_pad/2, ..., 2, 1 (`permute_benes._route`).  The register path unrolls
+    one block per cross-word delta of this sequence."""
+    up = tuple(1 << i for i in range(n_pad.bit_length() - 1))
+    return up + up[-2::-1]
+
+
+def network_ops(plan) -> int | list[int]:
+    """Integer operations per chunk of a plan's network, as the algorithm
+    needs them: 6 per nonzero in-word mask word (shift, xor, and, shift,
+    xor, xor) and 4 per nonzero cross-word pair (xor, and, xor, xor), over
+    each stage's live rows.  A `StackedPlans` gives one count per plan."""
+    masks = plan.masks if plan.masks.ndim == 3 else plan.masks[None]
+    ops = np.zeros(len(masks), dtype=np.int64)
+    for s, (delta, rows) in enumerate(zip(plan.deltas, plan.rows)):
+        live = np.count_nonzero(masks[:, s, :rows], axis=1)
+        ops += live * (6 if delta < 32 else 4)
+    return int(ops[0]) if plan.masks.ndim == 2 else [int(x) for x in ops]
 
 
 def _benes_cuda(name: str, words: torch.Tensor, plan, plan_stride: int,
-                key: torch.Tensor | None = None):
-    if plan.words_pad > MAX_WORDS_PAD:
-        raise ValueError(f"{name}: n_pad {plan.n_pad} exceeds the kernel's "
-                         f"{MAX_WORDS_PAD * 32}-bit network")
+                key: torch.Tensor | None = None, path: str | None = None):
+    """Launch csrc/benes.cu on `path` (default: `benes_path`'s pick)."""
+    path = path or benes_path(plan.words_pad)
+    if path == "register" and plan.deltas != network_deltas(plan.n_pad):
+        raise ValueError(f"{name}: stage deltas {plan.deltas} are not the "
+                         f"{plan.n_pad}-bit network's")
     masks, sched = pb.device_operands(plan, words.device)
     *lead, w, c = words.shape
     out = torch.empty_like(words)
@@ -59,7 +115,7 @@ def _benes_cuda(name: str, words: torch.Tensor, plan, plan_stride: int,
             check(name, lib().csgn_benes(
                 ptr(words), ptr(masks), ptr(sched), ptr(key), ptr(out), ptr(count),
                 batch, w, c, plan.words_pad, len(plan.deltas), min(w, plan.words_pad),
-                plan_stride, stream_of(words)
+                plan_stride, _PATH_CODES[path], stream_of(words)
             ))
         LAUNCHES[name] += grids(batch)
     return out, count

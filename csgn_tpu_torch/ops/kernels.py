@@ -16,9 +16,11 @@ torch versions.
   * K3 `decrypt_parity` / `chunk_matches` — streaming eq-all against the key
     mask, as a count or per chunk (csrc/decrypt.cu; replaces
     `decrypt_parity_pallas`).
-  * K5 `fill_anchor` — a constant fill of the product's shape at the aligned
-    multiply's thread map, the write speed-of-light anchor that K1/K2 are
-    timed against (csrc/fill.cu; replaces `fill_anchor_pallas`).
+  * K5 `fill_anchor` — a constant fill of the product's shape at the card's
+    write floor (flat 16-byte streaming stores over the whole buffer), the
+    write speed-of-light anchor that K1/K2 are timed against: anchor / K1 is
+    K1's share of the write floor (csrc/fill.cu; replaces
+    `fill_anchor_pallas`).
 
 Every wrapper takes word-major ``[W, C]`` words or a batch ``[B, W, C]``
 (one kernel launch for the whole batch, the element from the grid; the JAX
@@ -260,8 +262,8 @@ def fill_anchor_plain(seed: int, t1: int, t2: int, w: int, device=None) -> torch
 
 def fill_anchor(seed: int, t1: int, t2: int, w: int, device=None) -> torch.Tensor:
     """The write anchor: int32 ``[W, t1*t2]`` filled with the seed's low 32
-    bits, written at K1's thread map with no pad columns (the JAX fill pads
-    t1 up to its block).  ``device=None`` is the current CUDA device; a CPU
+    bits, written flat at the card's write floor with no pad columns (the JAX
+    fill pads t1 up to its block).  ``device=None`` is the current CUDA device; a CPU
     device takes the plain version, a CUDA device launches csrc/fill.cu."""
     device = resolve_device(device)
     if min(t1, t2, w) < 0:

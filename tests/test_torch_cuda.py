@@ -150,11 +150,16 @@ def _perm_words(n, lead, chunks, seed, dev):
     return ctx, rng, words_from_numpy(w & ctx.valid_mask[:, None], dev)
 
 
-@pytest.mark.parametrize("n", [17, 20, 31, 100, 1247, 4095])
+# Every network width of the register path (WP = n_pad / 32 = 1, 2, 4, ...,
+# 64) and WP = 128 of the shared path.
+BENES_WP_NS = [17, 20, 31, 33, 50, 100, 200, 400, 700, 1247, 2048, 2049, 4095]
+
+
+@pytest.mark.parametrize("n", BENES_WP_NS)
 @pytest.mark.parametrize("chunks", [1, 127, 129, 1025])
 def test_benes_k8_k12_match_plain(dev, n, chunks):
     """Ragged chunk counts (not a multiple of the 128-column block) and
-    n < 32 (W = 2 rows against a 1-row network)."""
+    n < 32 (W = 2 rows against a 1-row network), at every network width."""
     ctx, rng, x = _perm_words(n, (), chunks, n * 10 + chunks, dev)
     p = Permutation(rng.permutation(n))
     plan = p.benes_plan()
@@ -191,15 +196,73 @@ def test_benes_k9_and_shared_plan_match_plain(dev, n, k, chunks):
     assert torch.equal(shared, benes_kernels.apply_benes_plain(x, perms[0].benes_plan()))
 
 
-def test_benes_zero_stage_plans(dev):
-    n = 1247
+def _benes_on(path, name, x, plan, key=None):
+    stride = len(plan.deltas) * plan.words_pad if name == "apply_benes_batch" else 0
+    return benes_kernels._benes_cuda(name, x, plan, stride, key, path=path)
+
+
+@pytest.mark.parametrize("path", ["register", "shared"])
+@pytest.mark.parametrize("n", [20, 1247])
+def test_benes_zero_stage_plans(dev, n, path):
+    """The identity (every stage off) and a transposition (most stages off)
+    on both paths, at n < 32 too."""
     _, _, x = _perm_words(n, (), 300, 5, dev)
     swap = np.arange(n)
     swap[3], swap[n - 7] = swap[n - 7], swap[3]
     for p in (Permutation.identity(n), Permutation(swap)):
-        assert torch.equal(benes_kernels.apply_benes(x, p.benes_plan()),
+        assert torch.equal(_benes_on(path, "apply_benes", x, p.benes_plan())[0],
                            benes_kernels.apply_benes_plain(x, p.benes_plan()))
-    assert torch.equal(benes_kernels.apply_benes(x, Permutation.identity(n).benes_plan()), x)
+    assert torch.equal(_benes_on(path, "apply_benes", x, Permutation.identity(n).benes_plan())[0],
+                       x)
+
+
+@pytest.mark.parametrize("path", ["register", "shared"])
+@pytest.mark.parametrize("n", [20, 50, 100, 200, 400, 700, 1247, 2048])
+def test_benes_both_paths_match_plain(dev, n, path):
+    """K8, K12 (count and parity) and K9 forced onto each path at every
+    register-path width, over a ragged 129-column grid."""
+    ctx, rng, x = _perm_words(n, (), 129, n + 1, dev)
+    p = Permutation(rng.permutation(n))
+    plan = p.benes_plan()
+    assert benes_kernels.benes_path(plan.words_pad) == "register"
+    before = dict(kernels.LAUNCHES)
+    assert torch.equal(_benes_on(path, "apply_benes", x, plan)[0],
+                       benes_kernels.apply_benes_plain(x, plan))
+    key = _key(ctx, n, "cpu").apply_permutation(p).mask_words.to(dev)
+    x[:, 0:129:4] |= core.permute_chunks(key[:, None], torch.tensor(p.inverse().perm), n)
+    out, count = _benes_on(path, "apply_benes_decrypt", x, plan, key)
+    want_out, want_count = benes_kernels.apply_benes_decrypt_plain(x, plan, key, return_count=True)
+    assert torch.equal(out, want_out)
+    assert int(count) == int(want_count) >= 33 and int(count & 1) == int(want_count) & 1
+    _, _, xb = _perm_words(n, (3,), 129, n + 2, dev)
+    stacked = pb.stack_plans([Permutation(rng.permutation(n)).benes_plan() for _ in range(3)])
+    assert torch.equal(_benes_on(path, "apply_benes_batch", xb, stacked)[0],
+                       benes_kernels.apply_benes_batch_plain(xb, stacked))
+    for name in ("apply_benes", "apply_benes_decrypt", "apply_benes_batch"):
+        assert kernels.LAUNCHES[name] == before[name] + 1, name
+
+
+def test_benes_forced_shared_path_equals_register_at_1247(dev):
+    ctx, rng, x = _perm_words(1247, (), 1 << 16, 9, dev)
+    p = Permutation(rng.permutation(1247))
+    plan = p.benes_plan()
+    key = _key(ctx, 9, "cpu").apply_permutation(p).mask_words.to(dev)
+    x[:, ::7] |= core.permute_chunks(key[:, None], torch.tensor(p.inverse().perm), 1247)
+    new = benes_kernels.apply_benes_decrypt(x, plan, key, return_count=True)
+    old = _benes_on("shared", "apply_benes_decrypt", x, plan, key)
+    assert torch.equal(new[0], old[0]) and int(new[1]) == int(old[1]) > 0
+    assert torch.equal(benes_kernels.apply_benes(x, plan), _benes_on("shared", "apply_benes", x,
+                                                                      plan)[0])
+
+
+def test_benes_register_path_refuses_wide_networks(dev):
+    """WP = 128 has no register instantiation: the launch is refused and
+    raises, it does not fall back to the shared path."""
+    _, rng, x = _perm_words(4095, (), 33, 4, dev)
+    plan = Permutation(rng.permutation(4095)).benes_plan()
+    assert benes_kernels.benes_path(plan.words_pad) == "shared"
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _benes_on("register", "apply_benes", x, plan)
 
 
 @pytest.mark.parametrize("batch,t1,t2", [(1, 3, 5), (4, 1, 1), (5, 13, 7), (3, 128, 130)])
@@ -440,8 +503,10 @@ def test_philox_engine_through_the_key_on_card_equals_cpu(dev):
 
 
 @pytest.mark.parametrize("t1,t2,w", [(1, 1, 40), (4, 4, 40), (3, 5, 40), (1021, 16411, 4),
-                                     (64, 64, 128), (7, 9, 1)])
+                                     (64, 64, 128), (7, 9, 1), (1, 3, 1), (1021, 16411, 3)])
 def test_fill_anchor_k5_matches_plain(dev, t1, t2, w):
+    """C % 4 != 0, W*C below one block, and W*C % 4 != 0 (the words after the
+    last 16-byte store), up to a grid-stride walk of 201 MB."""
     before = kernels.LAUNCHES["fill_anchor"]
     got = kernels.fill_anchor(0x1_8000_0001, t1, t2, w, dev)
     assert torch.equal(got, kernels.fill_anchor_plain(0x1_8000_0001, t1, t2, w, dev))
