@@ -8,7 +8,8 @@
 //   out bit i of every chunk = in bit perm[i]
 //   stage s, delta < 32:  t = (x ^ (x << d)) & m[r];  x ^= t ^ (t >> d)
 //   stage s, delta >= 32: rows r and r + R (R = delta/32, bit R of r clear)
-//                         exchange the bits of m[r]:  t = (x[r] ^ x[r+R]) & m[r]
+//                         exchange the bits of m[r]:
+//                         x[r] = (x[r] & ~m[r]) | (x[r+R] & m[r]), and back
 //   count (kCount)      = #{chunks : (out & key) == key on every word}
 //
 // The pairwise form of the cross-word stage is the roll form of the plain
@@ -17,9 +18,11 @@
 // (i & delta) == 0), so the partner row r + R never wraps.
 //
 // Bound on the H100: integer operations.  Each chunk is read and written
-// once (W words each way), but its network costs 6 integer operations per
-// nonzero in-word mask word and 4 per nonzero cross-word pair of the live
-// rows: 3,266 a chunk on a random plan at n = 1247, twice its bytes' time.
+// once (W words each way), but its network costs, a three-input LOP3
+// counting one, 4 integer operations per nonzero in-word mask word (two
+// shifts, two LOP3) and 2 per nonzero cross-word pair (one bit-select LOP3 a
+// word) of the live rows: 2,022 a chunk on a random plan at n = 1247, 1.27
+// times its bytes' time.
 // One thread owns one chunk column for the whole network; threads never read
 // each other's columns, so the stages need no barrier.  Two paths, chosen by
 // the network's width WP = n_pad / 32 (ops/benes_kernels.py `benes_path`):
@@ -161,9 +164,9 @@ __device__ __forceinline__ void cross_word(uint32_t (&col)[WP], const uint32_t* 
               if (((q + i) & R) == 0) {
                 constexpr int kMask = WP - 1;  // keeps dead branches' indices in range
                 const int lo = q + i, hi = (q + i + R) & kMask;
-                const uint32_t t = (col[lo] ^ col[hi]) & mk[i];
-                col[lo] ^= t;
-                col[hi] ^= t;
+                const uint32_t a = col[lo], b = col[hi], sel = mk[i];
+                col[lo] = (a & ~sel) | (b & sel);  // a bit select: one LOP3 a word
+                col[hi] = (b & ~sel) | (a & sel);
               }
             }
           }

@@ -175,11 +175,9 @@ def lib() -> ctypes.CDLL:
 
 
 def kernel_resources() -> list[dict]:
-    """Every kernel of the built library as ``ptxas -v`` reported it:
-    ``{"kernel", "registers", "spill_stores", "spill_loads"}`` (bytes), and
-    ``"sass_instructions"`` as ``cuobjdump -sass`` lists them (None where
-    the toolkit has no ``cuobjdump``); names demangled where it has
-    ``cu++filt`` (or ``c++filt``)."""
+    """Every kernel of the built library as ``ptxas -v`` reported it, by its
+    mangled name: ``{"kernel", "registers", "spill_stores", "spill_loads"}``
+    (bytes)."""
     lib()
     text = library_path().with_name("ptxas.log").read_text()
     rows, cur = [], None
@@ -193,22 +191,6 @@ def kernel_resources() -> list[dict]:
             cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
         elif cur is not None and (m := re.search(r"Used (\d+) registers", line)):
             cur["registers"] = int(m.group(1))
-    bindir = str(pathlib.Path(_nvcc()).parent)
-    sizes = {}
-    if dump := shutil.which("cuobjdump", path=bindir):
-        sass = subprocess.run([dump, "-sass", str(library_path())], capture_output=True,
-                              text=True, check=True).stdout
-        for block in sass.split("Function : ")[1:]:
-            name, body = block.split("\n", 1)
-            sizes[name.strip()] = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s", body))
-    for r in rows:
-        r["sass_instructions"] = sizes.get(r["kernel"])
-    filt = shutil.which("cu++filt", path=bindir) or shutil.which("c++filt")
-    if filt and rows:
-        res = subprocess.run([filt], input="\n".join(r["kernel"] for r in rows),
-                             capture_output=True, text=True, check=True)
-        for r, name in zip(rows, res.stdout.splitlines()):
-            r["kernel"] = name
     return rows
 
 

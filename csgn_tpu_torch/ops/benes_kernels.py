@@ -86,15 +86,18 @@ def network_deltas(n_pad: int) -> tuple[int, ...]:
 
 
 def network_ops(plan) -> int | list[int]:
-    """Integer operations per chunk of a plan's network, as the algorithm
-    needs them: 6 per nonzero in-word mask word (shift, xor, and, shift,
-    xor, xor) and 4 per nonzero cross-word pair (xor, and, xor, xor), over
-    each stage's live rows.  A `StackedPlans` gives one count per plan."""
+    """Integer operations per chunk of a plan's network, the fewest the
+    H100 can issue them in, a three-input logic op (LOP3) counting one: 4
+    per nonzero in-word mask word (``t = (v ^ (v << d)) & m`` is a shift and
+    a LOP3, ``v ^ t ^ (t >> d)`` a shift and a LOP3) and 2 per nonzero
+    cross-word pair (each word is a bit select of the two under the mask,
+    one LOP3), over each stage's live rows.  A `StackedPlans` gives one
+    count per plan."""
     masks = plan.masks if plan.masks.ndim == 3 else plan.masks[None]
     ops = np.zeros(len(masks), dtype=np.int64)
     for s, (delta, rows) in enumerate(zip(plan.deltas, plan.rows)):
         live = np.count_nonzero(masks[:, s, :rows], axis=1)
-        ops += live * (6 if delta < 32 else 4)
+        ops += live * (4 if delta < 32 else 2)
     return int(ops[0]) if plan.masks.ndim == 2 else [int(x) for x in ops]
 
 

@@ -68,17 +68,18 @@ def _hand_plan():
 def test_network_ops_hand_count():
     plan = _hand_plan()
     assert plan.deltas[5] == 32 and plan.deltas[8] == 256 and plan.deltas[16] == 1
-    # 3 in-word words x 6 + 3 cross-word pairs x 4.
-    assert benes_kernels.network_ops(plan) == 3 * 6 + 3 * 4
+    # 3 in-word words x 4 + 3 cross-word pairs x 2.
+    assert benes_kernels.network_ops(plan) == 3 * 4 + 3 * 2
     other = pb.BenesPlan(n=500, n_pad=512, deltas=plan.deltas, masks=np.zeros_like(plan.masks),
                          rows=plan.rows)
-    assert benes_kernels.network_ops(pb.stack_plans([plan, other, plan])) == [30, 0, 30]
+    assert benes_kernels.network_ops(pb.stack_plans([plan, other, plan])) == [18, 0, 18]
 
 
 def test_network_ops_at_the_timed_size():
-    """Random plans at n = 1247 (the timed rows' size): 3,266 operations a
-    chunk on these seeds, 0.205 ms over 2^20 chunks at 16.73 T op/s."""
+    """Random plans at n = 1247 (the timed rows' size): 2,022 operations a
+    chunk on these seeds (389 in-word words, 233 pairs), 0.127 ms over 2^20
+    chunks at 16.73 T op/s."""
     plans = [pb.build_plan(np.random.default_rng(s).permutation(1247), 1247) for s in range(3)]
-    assert [benes_kernels.network_ops(p) for p in plans] == [3266, 3266, 3260]
-    assert benes_kernels.network_ops(pb.stack_plans(plans)) == [3266, 3266, 3260]
+    assert [benes_kernels.network_ops(p) for p in plans] == [2022, 2022, 2018]
+    assert benes_kernels.network_ops(pb.stack_plans(plans)) == [2022, 2022, 2018]
     assert benes_kernels.network_ops(pb.build_plan(np.arange(1247), 1247)) == 0

@@ -506,7 +506,8 @@ def test_philox_engine_through_the_key_on_card_equals_cpu(dev):
                                      (64, 64, 128), (7, 9, 1), (1, 3, 1), (1021, 16411, 3)])
 def test_fill_anchor_k5_matches_plain(dev, t1, t2, w):
     """C % 4 != 0, W*C below one block, and W*C % 4 != 0 (the words after the
-    last 16-byte store), up to a grid-stride walk of 201 MB."""
+    last 16-byte store), up to about 12,000 blocks of 16 KB (201 MB) plus
+    the W*C % 4 tail words."""
     before = kernels.LAUNCHES["fill_anchor"]
     got = kernels.fill_anchor(0x1_8000_0001, t1, t2, w, dev)
     assert torch.equal(got, kernels.fill_anchor_plain(0x1_8000_0001, t1, t2, w, dev))
