@@ -10,7 +10,7 @@ once under `torch.profiler`, and prints each path's host wall, device busy
 time, idle share and heaviest kernels as [profile] lines.
 
 Phases, each printing lines tagged [device] / [build] / [check] / [main] /
-[rotate] / [circuit] / [time]:
+[rotate] / [circuit] / [entry] / [sharded] / [time]:
 
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: the CUDA kernels from csgn_tpu_torch/csrc, with the seconds taken,
@@ -20,7 +20,9 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      small and ragged shapes and at the main path's full size: K1-K4, the
      Beneš kernels K8/K9/K12 at n in {20, 100, 1247, 4095} and up to 2^20
      chunks (the register path up to n = 2048, the shared path at 4095, and
-     the shared path forced at n = 1247 against the register path),
+     the shared path forced at n = 1247 against the register path), the
+     wide path at n in {20000, 70000} over 1,000 and 2^14 chunks (its
+     global-scratch form forced at 20000),
      K1-K3 on batched [B, W, C] operands, the Philox encrypt K7 and its
      stream dump K13 at batches {1, 255, 257, 2^22}, W in {3, 40, 128} and
      d in {4, 16, 32}, and the write anchor K5 against torch.full;
@@ -52,12 +54,25 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      key and a permutation through both checkpoint formats, and the encrypt
      statistics (`csgn_tpu_torch.tools.enc_stats`) at Context(4095, 32) over
      2^20 columns; every kernel of this path must be launched during it;
+  4e. the sharded path (`csgn_tpu_torch.parallel`) in-process at world size
+     1 over NCCL, Context(1247, 16): a 4096 x 4096 `sharded_mul_decrypt`
+     (parity 1 = chunk_matches), `sharded_mul_ring` and
+     `sharded_mul_allgather` at 4099 x 37 (the unaligned mode), a
+     `sharded_permute` of 2^20 chunks, `mul_chain_sharded_decrypt` on 4099 x
+     37 x 111, a checkpoint written from the ranks and resumed onto the mesh,
+     `parallel.dryrun.run()`, the 2-D ops on a (1, 1) mesh, and one K8 / K9
+     / K12 launch at n = 20000 on the Beneš kernel's wide path through the
+     public API, against the plain versions; every kernel of this path must
+     be launched during it; then `sharded_mul_decrypt` in turns with
+     `mul_and_decrypt` (the layer's cost with no peer), and the process
+     group is destroyed;
   5. timings of each kernel and its plain version at the paths' shapes
      (CUDA events, warm-up, median of distinct inputs; nothing is asserted);
      the multiply's modes also against the aligned mode and today's
      4-byte-store walk, and a sweep of b's size for the streaming threshold;
      K7 against K4, the Beneš kernel K8 in turns with its shared path forced
-     at n = 1247, and the write anchor K5 in turns with `Tensor.fill_`, then
+     at n = 1247, its wide path at n = 20000 over 2^14 chunks in turns with
+     the wide path's global-scratch form, and the write anchor K5 in turns with `Tensor.fill_`, then
      with K1 and with K2 (median per-pair ratio anchor ms / kernel ms, the JAX
      bench's value_vs_anchor).  Every row gets its bound (the larger of its bytes
      over 3.35 TB/s and its integer operations over 132 SMs x 64 INT32 lanes
@@ -86,14 +101,16 @@ import numpy as np
 import torch
 
 from csgn_tpu_torch import (BatchExecutor, Ciphertext, CiphertextBatch, Context, Permutation,
-                            RunConfig, SecretKey, cli, models)
+                            RunConfig, SecretKey, cli, models, parallel)
 from csgn_tpu_torch import io as cio
 from csgn_tpu_torch.circuit import lift
 from csgn_tpu_torch.layout import bit_positions_to_mask, words_from_numpy, words_to_numpy
 from csgn_tpu_torch.models import netlist as nl
 from csgn_tpu_torch.ops import _build, benes_kernels, core, encrypt_kernels, kernels
 from csgn_tpu_torch.ops import permute_benes as pb
-from csgn_tpu_torch.pipeline import mul_chain, mul_chain_decrypt
+from csgn_tpu_torch.parallel import dryrun
+from csgn_tpu_torch.pipeline import (mul_chain, mul_chain_decrypt, mul_chain_sharded,
+                                     mul_chain_sharded_decrypt)
 from csgn_tpu_torch.tools import enc_stats
 
 SEED = 20261016
@@ -119,6 +136,13 @@ FIPS197_C1 = ("000102030405060708090a0b0c0d0e0f", "00112233445566778899aabbccdde
 PHILOX_WS, PHILOX_DS, PHILOX_BATCHES = (3, 40, 128), (4, 16, 32), (1, 255, 257, ENC_BATCH)
 STATS_CTX, STATS_BATCH, STATS_SEED = Context(4095, 32), 1 << 20, 424242
 WORKDIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+SHARD_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_sharded"
+
+# The Beneš kernel's wide path (WP > 512): phase 3 at these n, phase 4e and
+# phase 5 at WIDE_N over WIDE_CHUNKS chunks (the PERF.md row's size).
+WIDE_NS = (20000, 70000)                  # WP = 1024 and 4096
+WIDE_N, WIDE_CHUNKS = 20000, 1 << 14
+SHARD_RING_T = (4099, 37)                 # t1 * t2 odd: the multiply's unaligned mode
 
 # Bounds: HBM at the H100 SXM's published
 # 3.35 TB/s; integer work at 132 SMs x 64 INT32 lanes x the SM clock.
@@ -155,6 +179,7 @@ KERNELS = [
      "csgn_tpu/ops/permute_benes.py:399"),
     ("K12", "apply_benes_decrypt", "csgn_tpu_torch/csrc/benes.cu",
      "csgn_tpu/ops/permute_benes.py:307"),
+    ("K8w", "benes_wide", "csgn_tpu_torch/csrc/benes.cu", "csgn_tpu/ops/permute_benes.py:533"),
     ("K6a", "mul_chunks_tiled", MUL_CU, "csgn_tpu/ops/kernels.py:384"),
     ("K6b", "mul_decrypt_tiled", MUL_CU, "csgn_tpu/ops/kernels.py:227"),
     ("K10", "mul_chunks_unaligned", MUL_CU, "csgn_tpu/ops/kernels.py:307"),
@@ -179,6 +204,10 @@ CIRCUIT_PATH = ("mul_chunks_unaligned", "mul_decrypt_unaligned", "mul_chunks_til
 ENTRY_PATH = ("encrypt_bits_counter", "encrypt_bits_philox", "philox_streams", "fill_anchor",
               "mul_chunks", "mul_decrypt", "mul_chunks_unaligned", "decrypt_parity",
               "chunk_matches", "apply_benes")
+SHARDED_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "encrypt_bits_counter",
+                "apply_benes", "apply_benes_batch", "apply_benes_decrypt",
+                "mul_chunks_unaligned", "mul_decrypt_unaligned", "benes_wide",
+                "mul_chunks_batched", "decrypt_parity_batched")
 
 
 class SmokeFailure(RuntimeError):
@@ -428,6 +457,54 @@ def check_benes(gen, pgen, dev, errs: dict) -> None:
             print(f"[check] apply_benes_batch n={n} ({path} path) k={k}: bit-equal at C in "
                   f"{(1, 129, 1025) + ((1 << 14,) if k == FLEET else ())}")
     require(saw_parity_one, "no K12 case had parity 1")
+
+
+def check_benes_wide(gen, pgen, dev, errs: dict) -> dict:
+    """K8 / K12 / K9 on the wide path (n > 16384) against their plain
+    versions at WIDE_NS, over 1,000 (not a multiple of the tile's 32
+    columns) and WIDE_CHUNKS chunks, and the global-scratch form forced at
+    WIDE_N.  Returns the routed permutations by n, for phases 4e and 5."""
+    perms = {}
+    for n in WIDE_NS:
+        ctx = Context(n, 16)
+        sk = SecretKey(ctx, torch.randperm(n, generator=pgen)[:ctx.d].numpy(), device=dev)
+        t0 = time.perf_counter()
+        p, q, r = (Permutation.random(n, pgen) for _ in range(3))
+        plan, stacked = p.benes_plan(), pb.stack_plans([q.benes_plan(), r.benes_plan()])
+        route_s = time.perf_counter() - t0
+        perms[n] = (p, q, r)
+        require(benes_kernels.benes_path(plan.words_pad) == "wide", f"n={n} not on the wide path")
+        key = sk.apply_permutation(p).mask_words
+        pre = core.permute_chunks(key[:, None], torch.tensor(p.inverse().perm), n)
+        for chunks in (1000, WIDE_CHUNKS):
+            x = canon_words(ctx, (ctx.words32, chunks), gen, dev)
+            x[:, 0:chunks:5] |= pre
+            want_out, want_count = benes_kernels.apply_benes_decrypt_plain(x, plan, key,
+                                                                           return_count=True)
+            forms = [("wide", benes_kernels.apply_benes(x, plan),
+                      benes_kernels.apply_benes_decrypt(x, plan, key, return_count=True))]
+            if n == WIDE_N:
+                forms.append(("global", benes_kernels._benes_cuda("apply_benes", x, plan, 0,
+                                                                  path="global")[0],
+                              benes_kernels._benes_cuda("apply_benes_decrypt", x, plan, 0, key,
+                                                        path="global")))
+            for form, out8, (out12, count) in forms:
+                e = max(max_abs_err(out8, want_out), max_abs_err(out12, want_out),
+                        abs(int(count) - int(want_count)))
+                errs["benes_wide"] = max(errs["benes_wide"], e)
+                require(e == 0, f"wide path ({form}) disagrees with plain at n={n} C={chunks}")
+            require(int(want_count) >= len(range(0, chunks, 5)), "K12 missed forced matches")
+            xb = canon_words(ctx, (2, ctx.words32, chunks), gen, dev)
+            e9 = max_abs_err(benes_kernels.apply_benes_batch(xb, stacked),
+                             benes_kernels.apply_benes_batch_plain(xb, stacked))
+            errs["benes_wide"] = max(errs["benes_wide"], e9)
+            require(e9 == 0, f"wide-path K9 disagrees with plain at n={n} C={chunks}")
+            del x, xb, want_out
+        print(f"[check] wide path n={n} (WP={plan.words_pad}, {len(plan.deltas)} stages, "
+              f"routed in {route_s:.2f} s): K8, K12 (count {int(want_count)}) and K9 (2 plans) "
+              f"bit-equal at C in (1000, {WIDE_CHUNKS})"
+              + ("; global-scratch form forced: equal" if n == WIDE_N else ""))
+    return perms
 
 
 def philox_operands(w: int, d: int, seed: int, dev):
@@ -907,6 +984,173 @@ def entry_path(ctx, indices, rng, pgen) -> tuple[dict, dict]:
     return launches, {"steps": steps, "seconds": seconds, "enc_stats": stats}
 
 
+# ---------------------------------------------------------------------------
+# Phase 4e: the sharded path at world size 1, over NCCL
+# ---------------------------------------------------------------------------
+
+
+def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str) -> tuple[dict, dict]:
+    """`csgn_tpu_torch.parallel` in-process at world size 1 over NCCL (a
+    ``file://`` store in the gitignored build directory): the headline fused
+    product sharded, the ring and all-gather products in the unaligned mode,
+    a sharded permutation of 2^20 chunks, the sharded chain fused with the
+    decrypt, a checkpoint written from the ranks and resumed onto the mesh,
+    the dry run, the 2-D ops on a (1, 1) mesh, and one K8 / K9 / K12 launch
+    at n = WIDE_N on the Beneš kernel's wide path through the public API.
+    The process group is destroyed before returning.  Returns (launches,
+    timings)."""
+    bits1, bits2 = odd_bits(rng, MAIN_T), odd_bits(rng, MAIN_T)
+    ring_bits = [odd_bits(rng, t) for t in SHARD_RING_T]
+    chain_bits = [odd_bits(rng, t) for t in CHAIN_T]
+    fleet_bits = rng.integers(0, 2, (FLEET, FLEET_T)).astype(np.int32)
+    fleet_bits[0, 0] ^= int(fleet_bits[0].sum() % 2 == 0)        # element 0 decrypts to 1
+    wctx = Context(WIDE_N, 16)
+    wide_bits = odd_bits(rng, WIDE_CHUNKS)
+    wp, wq, wr = wide_perms[WIDE_N]
+    perm = Permutation.random(ctx, pgen)
+    perm.benes_plan()
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    dev = parallel.initialize(f"file://{SHARD_DIR / 'store'}", 1, 0)
+    try:
+        require(torch.distributed.get_backend() == "nccl", "the process group is not NCCL")
+        for name in kernels.LAUNCHES:
+            kernels.LAUNCHES[name] = 0
+        steps: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+
+        mesh = parallel.global_chunk_mesh()
+        require(mesh.device == dev and mesh.shape == {"c": 1}, f"mesh {mesh}")
+        sk = SecretKey(ctx, indices)
+        m = sk.mask_words
+        ops = sk.encrypt_operands
+
+        # The headline: a 4096 x 4096 fused product, sharded.
+        c1, c2 = (parallel.sharded_encrypt_bits(SEED + 800 + i, torch.from_numpy(b).to(dev), *ops,
+                                                ctx.n, ctx.d, mesh) for i, b in enumerate(
+                                                    (bits1, bits2)))
+        enc_ok = torch.equal(c1, sk.encrypt_batch(bits1, SEED + 800))
+        prod, parity = _timed(steps, f"sharded_mul_decrypt {MAIN_T}x{MAIN_T}",
+                              lambda: parallel.sharded_mul_decrypt(c1, c2, m, mesh))
+        oracle = int(core.chunk_matches(prod, m).sum() & 1)
+        require(enc_ok, "sharded encrypt != the one-device encrypt")
+        require(int(parity) == oracle == 1, f"sharded_mul_decrypt parity {int(parity)}, "
+                f"chunk_matches {oracle}, expected 1")
+        require(tuple(prod.shape) == (ctx.words32, MAIN_T * MAIN_T), "headline product shape")
+        head = prod[:, :1 << 20].contiguous()                   # 2^20 chunks for the permute
+        del prod
+
+        # Ring and all-gather in the unaligned mode.
+        a, b = (sk.encrypt_batch(x, SEED + 810 + i) for i, x in enumerate(ring_bits))
+        ring = _timed(steps, "sharded_mul_ring", lambda: parallel.sharded_mul_ring(a, b, mesh))
+        gath = _timed(steps, "sharded_mul_allgather",
+                      lambda: parallel.sharded_mul_allgather(a, b, mesh))
+        require(torch.equal(ring, gath) and torch.equal(ring, kernels.mul_chunks_plain(a, b)),
+                "ring / all-gather != the plain product")
+        del ring, gath
+
+        # A sharded permutation of 2^20 chunks, decrypted under the permuted key.
+        psk = sk.apply_permutation(perm)
+        rot = _timed(steps, "sharded_permute 2^20",
+                     lambda: parallel.sharded_permute(head, perm.benes_plan(), mesh))
+        d_head = int(parallel.sharded_decrypt_parity(head, m, mesh))
+        d_rot = int(parallel.sharded_decrypt_parity(rot, psk.mask_words, mesh))
+        require(d_rot == d_head, f"permuted block decrypts to {d_rot}, not {d_head}")
+        require(torch.equal(rot[:, :4096], core.permute_chunks(
+            head[:, :4096], torch.tensor(perm.perm), ctx.n)), "sharded permute != gather oracle")
+        del rot
+
+        # The sharded chain, fused with the decrypt: 4099 x 37 x 111.
+        cts = [Ciphertext(sk.encrypt_batch(x, SEED + 820 + i), ctx)
+               for i, x in enumerate(chain_bits)]
+        chain, p_chain = _timed(steps, "mul_chain_sharded_decrypt",
+                                lambda: mul_chain_sharded_decrypt(cts, sk, mesh))
+        two = mul_chain_sharded(cts[:2], mesh)
+        require(int(p_chain) == 1 == int(core.chunk_matches(chain.wt, m).sum() & 1),
+                f"sharded chain parity {int(p_chain)} != 1")
+        require(torch.equal(chain.wt, kernels.mul_chunks_plain(two.wt, cts[2].wt)),
+                "sharded chain != the plain product of its steps")
+        del chain
+
+        # Checkpoint from the ranks, resumed onto the mesh.
+        _timed(steps, "save_state_sharded (mesh)", lambda: cio.save_state_sharded(
+            SHARD_DIR / "ckpt", {"two": two, "sk": sk, "perm": perm}, mesh))
+        back = _timed(steps, "load_state_sharded (mesh)",
+                      lambda: cio.load_state_sharded(SHARD_DIR / "ckpt", mesh=mesh))
+        require(torch.equal(back["two"].wt, two.wt) and back["two"].wt.is_cuda
+                and back["perm"] == perm, "checkpoint round trip differs")
+        require(int(back["sk"].decrypt(back["two"])) == 1, "resumed chain does not decrypt to 1")
+        del two, back, cts
+
+        # The dry run, and the 2-D ops on a (1, 1) mesh.
+        summary = _timed(steps, "dryrun.run", lambda: dryrun.run(workdir=SHARD_DIR))
+        mesh2 = parallel.batch_chunk_mesh(1, 1)
+        fleet = torch.stack([sk.encrypt_batch(fleet_bits[i], SEED + 830 + i)
+                             for i in range(FLEET)])                      # [64, 40, 128]
+        blk = parallel.shard_batch(fleet, mesh2)
+        grown = parallel.sharded_mul_batch(blk, blk, mesh2)
+        dec = parallel.sharded_decrypt_batch(grown, m, mesh2).cpu().numpy()
+        rot_b = parallel.sharded_permute_batch(grown, perm.benes_plan(), mesh2)
+        dec_rot = psk.decrypt_batch(rot_b).cpu().numpy()
+        want = fleet_bits.sum(axis=1) % 2
+        require(np.array_equal(dec, want) and np.array_equal(dec_rot, want),
+                "2-D sharded fleet decrypts != bits")
+        require(torch.equal(grown, kernels.mul_chunks_plain(fleet, fleet)), "2-D product")
+        del fleet, blk, grown, rot_b
+
+        # The Beneš kernel's wide path at n = WIDE_N, through the public API.
+        wsk = SecretKey(wctx, torch.randperm(WIDE_N, generator=pgen)[:16].numpy())
+        wct = Ciphertext(wsk.encrypt_batch(wide_bits, SEED + 840), wctx)
+        wrot = wct.apply_permutation(wp)
+        d_wide = int(wsk.apply_permutation(wp).decrypt(wrot))
+        wfleet = CiphertextBatch.stack([wct, wct])
+        wrot2 = wfleet.apply_permutations([wq, wr])
+        wfused, wcount = benes_kernels.apply_benes_decrypt(
+            wct.wt, wp.benes_plan(), wsk.apply_permutation(wp).mask_words, return_count=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        # Held against the plain versions (not counted: the path's run is over).
+        e = max(max_abs_err(wrot.wt, benes_kernels.apply_benes_plain(wct.wt, wp.benes_plan())),
+                max_abs_err(wrot2.wt, benes_kernels.apply_benes_batch_plain(
+                    wfleet.wt, pb.stack_plans([wq.benes_plan(), wr.benes_plan()]))),
+                max_abs_err(wfused, wrot.wt))
+        _, want_count = benes_kernels.apply_benes_decrypt_plain(
+            wct.wt, wp.benes_plan(), wsk.apply_permutation(wp).mask_words, return_count=True)
+        require(e == 0 and int(wcount) == int(want_count), "wide path != plain at n=20000")
+        require(d_wide == 1 and int(wcount) & 1 == 1, f"wide rotation decrypts to {d_wide}")
+        idle = [k for k in SHARDED_PATH if launches[k] == 0]
+        require(not idle, f"sharded path never launched: {idle}")
+
+        # The layer's cost with no peer: sharded_mul_decrypt against
+        # mul_and_decrypt on the same operands, in turns.
+        pairs = [tuple(sk.encrypt_batch(odd_bits(rng, MAIN_T), SEED + 850 + 2 * k + i)
+                       for i in range(2)) for k in range(REPS)]
+        cpairs = [(Ciphertext(x, ctx), Ciphertext(y, ctx)) for x, y in pairs]
+        sh_ms, md_ms = time_pair(
+            lambda k: parallel.sharded_mul_decrypt(*pairs[k], m, mesh),
+            lambda k: sk.mul_and_decrypt(*cpairs[k]), [(k,) for k in range(REPS)])
+        del pairs, cpairs
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    print(f"[sharded] world size 1 over NCCL ({mesh}): {MAIN_T}x{MAIN_T} sharded_mul_decrypt "
+          f"parity {int(parity)} = chunk_matches; ring = all-gather = plain at "
+          f"{SHARD_RING_T[0]}x{SHARD_RING_T[1]}; sharded_permute of 2^20 chunks decrypts "
+          f"{d_rot} under the permuted key; mul_chain_sharded_decrypt "
+          f"{'x'.join(map(str, CHAIN_T))} parity {int(p_chain)}; checkpoint resumed onto the "
+          f"mesh; dryrun {json.dumps(summary)}; (1, 1) mesh fleet {FLEET} x {FLEET_T}^2 decrypts "
+          f"= bits; n={WIDE_N} wide path K8/K9/K12 bit-equal to plain, rotated decrypt "
+          f"{d_wide}; {seconds:.3f} s host wall")
+    print(f"[sharded] sharded_mul_decrypt {sh_ms:.4f} ms against mul_and_decrypt {md_ms:.4f} ms "
+          f"in turns ({MAIN_T}x{MAIN_T}, overhead {sh_ms - md_ms:+.4f} ms); {card}")
+    print(f"[sharded] host wall per step (s): {json.dumps(steps)}")
+    print(f"[sharded] launches {json.dumps({k: launches[k] for k in SHARDED_PATH})}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launches, {"sharded_ms": sh_ms, "mul_and_decrypt_ms": md_ms, "steps": steps}
+
+
 def profile_path(label: str, run, warm: int) -> None:
     """A path `warm` times warm (host wall), then once under torch.profiler:
     device busy time (the union of kernel intervals), idle share of the host
@@ -1214,6 +1458,42 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked, bound) -> dic
     return out
 
 
+def wide_timings(gen, pgen, dev, card: str, wide_perms, bound) -> dict:
+    """The Beneš kernel's wide path at n = WIDE_N over WIDE_CHUNKS chunks:
+    K8 against its plain version, in turns with its global-scratch form, and
+    K12 on the same inputs.  Bytes: the payload read and written; operations:
+    the plan's `network_ops` per chunk (K12: plus one per nonzero key word)."""
+    ctx = Context(WIDE_N, 16)
+    p = wide_perms[WIDE_N][0]
+    plan = p.benes_plan()
+    sk = SecretKey(ctx, torch.randperm(WIDE_N, generator=pgen)[:ctx.d].numpy(), device=dev)
+    key = sk.apply_permutation(p).mask_words
+    w = ctx.words32
+    xs = [(canon_words(ctx, (w, WIDE_CHUNKS), gen, dev),) for _ in range(REPS)]
+    nbytes = 2 * w * WIDE_CHUNKS * 4
+    ops = benes_kernels.network_ops(plan) * WIDE_CHUNKS
+    ms, pms = time_pair(lambda x: benes_kernels.apply_benes(x, plan),
+                        lambda x: benes_kernels.apply_benes_plain(x, plan), xs)
+    tile_ms, global_ms = time_pair(
+        lambda x: benes_kernels.apply_benes(x, plan),
+        lambda x: benes_kernels._benes_cuda("apply_benes", x, plan, 0, path="global")[0], xs)
+    k12_ms, k12_plain_ms = time_pair(
+        lambda x: benes_kernels.apply_benes_decrypt(x, plan, key),
+        lambda x: benes_kernels.apply_benes_decrypt_plain(x, plan, key), xs)
+    bnd = bound(nbytes, ops)
+    k12_bnd = bound(nbytes + 4 * w + 8, ops + int(torch.count_nonzero(key)) * WIDE_CHUNKS)
+    print(f"[time] apply_benes wide path n={WIDE_N} (WP={plan.words_pad}) {w}x{WIDE_CHUNKS}: "
+          f"kernel {ms:.4f} ms ({WIDE_CHUNKS / ms / 1e3:.2f} M chunks/s), plain {pms:.4f} ms; "
+          f"in turns with its global-scratch form: {tile_ms:.4f} ms against {global_ms:.4f} ms; "
+          f"K12 {k12_ms:.4f} ms (plain {k12_plain_ms:.4f}, bound {k12_bnd['bound_ms']:.4f}); "
+          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, {ops // WIDE_CHUNKS} ops a "
+          f"chunk); {card}")
+    return {"K8w": {"shape": f"{w}x{WIDE_CHUNKS} (n={WIDE_N})", "ms": ms, "plain_ms": pms,
+                    "against_global_ms": tile_ms, "global_form_ms": global_ms,
+                    "k12_ms": k12_ms, "k12_plain_ms": k12_plain_ms, "k12_bound_ms":
+                    k12_bnd["bound_ms"], **bnd, "library_ms": None}}
+
+
 def mode_timings(ctx, sk, gen, dev, card: str, bound) -> dict:
     """The multiply's unaligned and b-streamed modes: each against its plain
     version, against the aligned mode at (nearly) equal product bytes, the
@@ -1339,8 +1619,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     resources = _build.kernel_resources()
     watched = [r for r in resources if "benes_" in r["kernel"] or "fill_kernel" in r["kernel"]]
-    require(len(watched) == 17, f"ptxas reported {len(watched)} Beneš and fill kernels, "
-            "not 14 register + 2 shared + 1 fill")
+    require(len(watched) == 23, f"ptxas reported {len(watched)} Beneš and fill kernels, "
+            "not 14 register + 2 shared + 6 wide + 1 fill")
     for r in resources:  # every Beneš and fill kernel, and any other that spills
         spills = r["spill_stores"] or r["spill_loads"]
         if r in watched or spills:
@@ -1362,6 +1642,7 @@ def main() -> int:
     check_batched(ctx, sk, gen, dev, errs)
     check_modes(ctx, sk, gen, dev, errs)
     check_benes(gen, pgen, dev, errs)
+    wide_perms = check_benes_wide(gen, pgen, dev, errs)
     check_philox(gen, dev, errs)
     check_fill(dev, errs)
     torch.cuda.synchronize()
@@ -1402,16 +1683,24 @@ def main() -> int:
     entry_launches, _ = entry_path(ctx, indices, rng, pgen)
     torch.cuda.empty_cache()
 
+    # Phase 4e: the sharded path at world size 1; its process group is
+    # destroyed before phase 5.
+    torch.cuda.reset_peak_memory_stats(dev)
+    shard_launches, _ = sharded_path(ctx, indices, rng, pgen, wide_perms, smi)
+    require(not torch.distributed.is_initialized(), "the process group outlived phase 4e")
+    torch.cuda.empty_cache()
+
     # Phase 5: timings.
     times = timings(ctx, sk, gen, dev, smi, p, stacked, bound)
     times.update(mode_timings(ctx, sk, gen, dev, smi, bound))
+    times.update(wide_timings(gen, pgen, dev, smi, wide_perms, bound))
     torch.cuda.synchronize()
     extra = ("unaligned_t2_1", "unaligned_t2_3", "threshold_sweep")
     print(f"[time] mode timings {json.dumps({k: times[k] for k in extra})}")
 
     rows = []
     paths = (("main", main_launches), ("rotation", rot_launches), ("circuit", circ_launches),
-             ("entry", entry_launches))
+             ("entry", entry_launches), ("sharded", shard_launches))
     for tid, name, src, rep in KERNELS:
         by_path = {path: launches.get(name, 0) + launches.get(name + "_batched", 0)
                    for path, launches in paths}

@@ -16,7 +16,7 @@ CLI: ``--device cpu``), and raise where there is no card.  Checkpoints
 
 from csgn_tpu_torch import models
 from csgn_tpu_torch.batch import CiphertextBatch
-from csgn_tpu_torch.ciphertext import Ciphertext
+from csgn_tpu_torch.ciphertext import Ciphertext, set_eager_order
 from csgn_tpu_torch.circuit import CtExpr
 from csgn_tpu_torch.config import RunConfig
 from csgn_tpu_torch.context import Context
@@ -28,6 +28,7 @@ from csgn_tpu_torch.serve import BatchExecutor
 __version__ = "0.1.0"
 
 __all__ = [
-    "Context", "Plaintext", "SecretKey", "Ciphertext", "CiphertextBatch", "Permutation",
+    "Context", "Plaintext", "SecretKey", "Ciphertext", "CiphertextBatch", "set_eager_order",
+    "Permutation",
     "CtExpr", "RunConfig", "BatchExecutor", "models", "__version__",
 ]

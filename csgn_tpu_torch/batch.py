@@ -80,6 +80,18 @@ class CiphertextBatch:
         return int(self.wt.shape[-1])
 
     @property
+    def physical_chunks(self) -> int:
+        """Device-resident chunks per element: `chunks`, since the port
+        never pads a product (the JAX package's may carry pad chunks)."""
+        return int(self.wt.shape[-1])
+
+    @property
+    def is_canonical(self) -> bool:
+        """True: every element is in the reference's chunk order (the port's
+        batched products carry no order tag)."""
+        return True
+
+    @property
     def device(self) -> torch.device:
         return self.wt.device
 

@@ -35,7 +35,26 @@ from csgn_tpu_torch.ops import core, dispatch
 from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.utils.metrics import op_metrics
 
-__all__ = ["Ciphertext"]
+__all__ = ["Ciphertext", "set_eager_order"]
+
+# The JAX package's order flag (csgn_tpu/ciphertext.py:60-75), kept so that
+# code written against its API runs unchanged; no result of the port reads it.
+_EAGER_ORDER = False
+
+
+def set_eager_order(eager: bool) -> bool:
+    """Set the eager-order flag and return its previous setting, as the JAX
+    package's `set_eager_order` does.
+
+    There, eager order makes every operator write the reference's chunk
+    order at once instead of tagging a lazy (j-major or padded) payload.
+    Every product of the port is already written in that canonical order,
+    so the flag is kept for API parity and changes no result.
+    """
+    global _EAGER_ORDER
+    prev = _EAGER_ORDER
+    _EAGER_ORDER = bool(eager)
+    return prev
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -68,6 +87,20 @@ class Ciphertext:
     @property
     def chunks(self) -> int:
         return int(self.wt.shape[-1])
+
+    @property
+    def physical_chunks(self) -> int:
+        """Device-resident chunk count.  In the JAX package it includes the
+        alignment pad chunks of a lazy payload; the port never pads a
+        product, so it equals `chunks`."""
+        return int(self.wt.shape[-1])
+
+    @property
+    def is_canonical(self) -> bool:
+        """True: the payload is in the reference's chunk order.  The JAX
+        package answers False for a lazily ordered product; every product of
+        the port is written canonical (csrc/mul.cu)."""
+        return True
 
     @property
     def nbytes(self) -> int:

@@ -23,9 +23,10 @@
 // shifts, two LOP3) and 2 per nonzero cross-word pair (one bit-select LOP3 a
 // word) of the live rows: 2,022 a chunk on a random plan at n = 1247, 1.27
 // times its bytes' time.
-// One thread owns one chunk column for the whole network; threads never read
-// each other's columns, so the stages need no barrier.  Two paths, chosen by
-// the network's width WP = n_pad / 32 (ops/benes_kernels.py `benes_path`):
+// On the register and shared paths one thread owns one chunk column for the
+// whole network; threads never read each other's columns, so the stages need
+// no barrier.  Three paths, chosen by the network's width WP = n_pad / 32
+// (ops/benes_kernels.py `benes_path`):
 //
 //   * register path, WP <= 64 (n <= 2048): the column is `uint32_t col[WP]`,
 //     templated on WP, with every row index a compile-time constant, so it
@@ -38,24 +39,30 @@
 //     branched around (on a random plan at n = 1247, 389 of the 400 live
 //     in-word words are nonzero).  Masks are read as 16-byte broadcasts from
 //     shared memory, one per 4 rows;
-//   * shared path, WP > 64 (up to MAX_WORDS_PAD = 512 in the wrapper): the
+//   * shared path, WP > 64 (up to SHARED_WORDS_PAD = 512 in the wrapper): the
 //     column does not fit in registers and lives in shared memory as
 //     tile[row][thread] (row-major with stride blockDim.x, so a warp's
 //     accesses to one row hit 32 distinct banks).  Each live row costs a
 //     shared load and store; zero mask words skip their row with a branch
-//     that never diverges.
+//     that never diverges;
+//   * wide path, WP > 512 (n > 16384; see its section below): a block's
+//     threads split each stage's rows over a tile of up to 32 chunk
+//     columns, four columns a thread, with a barrier between stages; the
+//     masks are read from global memory (L1/L2) instead of staged, and the
+//     tile is in shared memory or, past WP = 32768, in a global scratch.
 //
-// Common to both paths:
+// Common to all paths:
 //   * rows [w_net, WP) start as zeros (the network's padding); output rows
 //     [w_net, W) are stored as zeros (n < 32, where W = 2 > WP = 1);
 //   * the schedule (delta, live rows; rows 0 = stage off in every plan) and
-//     the plan's masks [S, WP] are staged in shared memory once per block;
+//     the plan's masks [S, WP] are staged in shared memory once per block
+//     (register and shared paths);
 //   * batch element b comes from blockIdx.y (the host launches one grid per
 //     65535 elements) and selects plan masks + b * plan_stride;
-//   * the count is a per-thread eq-all over the output column (the register
-//     path ORs the key bits its column misses, one LOP3 a row), a warp sum
-//     and one 64-bit atomicAdd per warp that found a match (exact in any
-//     order), into count[b];
+//   * the count is an eq-all over the output column (the register path ORs
+//     the key bits its column misses, one LOP3 a row), a warp sum and one
+//     64-bit atomicAdd per warp that found a match (exact in any order),
+//     into count[b] (the wide path: see its section);
 //   * all offsets are 64-bit ([k, W, C] with k*C = 2^24 passes 2^31 words);
 //     the ragged last column block is bounds-checked, not padded.
 
@@ -67,7 +74,9 @@ namespace {
 constexpr int kThreads = 128;           // chunk columns per block (at most)
 constexpr int kMaxRegisterWords = 64;   // widest network of the register path
 constexpr size_t kSmemLimit = 227 * 1024;
+constexpr size_t kSmemPerTwoBlocks = 112 * 1024;  // two blocks on an SM's 228 KB
 constexpr int64_t kMaxGridY = 65535;
+constexpr int kWideThreads = 768;       // the wide path's block: two fit an SM
 
 // Shared memory of both paths after the shared path's tile: masks
 // [stages][wp], key [max(w, wp)] (count only; zero past w, so the register
@@ -304,6 +313,176 @@ benes_shared_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__
 }
 
 // ---------------------------------------------------------------------------
+// Wide path
+// ---------------------------------------------------------------------------
+//
+// WP > 512 (n > 16384): the shared path's tile and staged masks no longer fit
+// (WP = 1024 needs 128 KB of tile at 32 columns plus 116 KB of masks), and
+// a tile of 32 columns at one column a thread would leave one warp on an SM.
+// Here a block of kWideThreads (768) threads shares a tile of cb chunk
+// columns: each thread works on V adjacent columns (V = 4 where cb >= 4, one
+// 16-byte shared access, one mask load and one address for four words; else
+// 1) of one row slot, and the slots split the live rows (or cross-word
+// pairs) of every stage, with a block barrier between stages.  The tile is
+// row-major, tile[r][k], so a quarter warp's accesses are 128 contiguous
+// bytes: the coalesced load and store of x and out, and the stages, are free
+// of bank conflicts (but for a 2-way conflict on the pairs of R < 4).  The
+// plan's masks, the schedule and the key are read from global memory through
+// the read-only path; a mask word serves all cb chunks of the block, so each
+// block reads the plan once.  The launch bound keeps two blocks on an SM (42
+// registers, no spills; 1024-thread blocks spilled at 32).  The row loops
+// are not unrolled (unrolled by 2 they ran 1 % slower), and a zero mask word
+// is computed (a no-op), not branched around.
+//
+//   * kTile: the tile is in shared memory; cb is the largest power of two
+//     up to 32 whose WP x cb words leave room for two blocks on an SM (16 at
+//     WP = 1024, 4 at 4096, 1 at 16384), else for one (1 at 32768);
+//   * otherwise (WP > 32768, n > 2^20) each block's tile of 32 columns is a
+//     region of a global scratch (the wrapper allocates it), the stages the
+//     same with global loads and stores.
+//
+// The count ORs each chunk's missed key bits into a shared word per chunk,
+// then adds one per matching chunk.
+
+// V consecutive words of a tile row (16-byte aligned for V = 4).
+template <int V>
+__device__ __forceinline__ void tile_load(uint32_t (&v)[V], const uint32_t* p) {
+  if constexpr (V == 4) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = p[i];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void tile_store(uint32_t* p, const uint32_t (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i) p[i] = v[i];
+  }
+}
+
+template <bool kCount, bool kTile, int V>
+__global__ void __launch_bounds__(kWideThreads, 2)  // two blocks an SM: 42 registers
+benes_wide_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ masks,
+                  const int32_t* __restrict__ sched, const uint32_t* __restrict__ key,
+                  uint32_t* __restrict__ out, unsigned long long* __restrict__ count,
+                  uint32_t* __restrict__ scratch, int64_t w, int64_t c, int log_cb, int wp,
+                  int stages, int w_net, int64_t plan_stride) {
+  constexpr int kLogV = V == 4 ? 2 : (V == 2 ? 1 : 0);
+  const int64_t b = blockIdx.y;
+  const int cb = 1 << log_cb;
+  const int log_lanes = log_cb - kLogV;  // threads per tile row
+  const int k = (threadIdx.x & ((1 << log_lanes) - 1)) << kLogV;  // the first column
+  const int slot = threadIdx.x >> log_lanes;
+  const int slots = blockDim.x >> log_lanes;
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * cb + k;  // idle columns run on zeros
+  const uint32_t* xb = x + b * w * c;
+  uint32_t* ob = out + b * w * c;
+  const uint32_t* mb = masks + b * plan_stride;
+  extern __shared__ uint4 wide_smem[];  // 16-byte aligned rows
+  __shared__ uint32_t miss[32];
+  uint32_t* tile = kTile ? reinterpret_cast<uint32_t*>(wide_smem)
+                         : scratch + (b * gridDim.x + blockIdx.x) * (static_cast<int64_t>(wp)
+                                                                     << log_cb);
+
+  if (kCount && threadIdx.x < cb) miss[threadIdx.x] = 0u;
+  for (int r = slot; r < wp; r += slots) {
+    uint32_t v[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) v[i] = (j + i < c && r < w_net) ? xb[r * c + j + i] : 0u;
+    tile_store<V>(tile + (r << log_cb) + k, v);
+  }
+  __syncthreads();
+
+  for (int s = 0; s < stages; ++s) {
+    const int delta = __ldg(sched + 2 * s);
+    const int rows = __ldg(sched + 2 * s + 1);
+    const uint32_t* m = mb + static_cast<int64_t>(s) * wp;
+    if (delta < 32) {
+#pragma unroll 1
+      for (int r = slot; r < rows; r += slots) {
+        const uint32_t mr = __ldg(m + r);
+        uint32_t* at = tile + (r << log_cb) + k;
+        uint32_t v[V];
+        tile_load<V>(v, at);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const uint32_t t = (v[i] ^ (v[i] << delta)) & mr;
+          v[i] ^= t ^ (t >> delta);  // uint32_t: a logical shift
+        }
+        tile_store<V>(at, v);
+      }
+    } else {
+      // Pair p of the stage is row r = p with a zero bit R inserted, and its
+      // partner r + R (< WP, since bit R of r is clear); rows [0, rows) hold
+      // `pairs` lower rows.
+      const int rr = delta >> 5;
+      const int pairs = rows / (2 * rr) * rr + min(rows % (2 * rr), rr);
+#pragma unroll 1
+      for (int p = slot; p < pairs; p += slots) {
+        const int r = p + (p & ~(rr - 1));
+        const uint32_t mr = __ldg(m + r);
+        uint32_t* lo_at = tile + (r << log_cb) + k;
+        uint32_t* hi_at = lo_at + (rr << log_cb);
+        uint32_t lo[V], hi[V];
+        tile_load<V>(lo, lo_at);
+        tile_load<V>(hi, hi_at);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const uint32_t l = lo[i];
+          lo[i] = (l & ~mr) | (hi[i] & mr);  // a bit select: one LOP3 a word
+          hi[i] = (hi[i] & ~mr) | (l & mr);
+        }
+        tile_store<V>(lo_at, lo);
+        tile_store<V>(hi_at, hi);
+      }
+    }
+    __syncthreads();
+  }
+
+  if constexpr (kCount) {
+    uint32_t missed[V] = {};
+    for (int64_t r = slot; r < w; r += slots) {
+      const uint32_t kr = __ldg(key + r);
+      uint32_t v[V] = {};
+      if (r < w_net) tile_load<V>(v, tile + (r << log_cb) + k);
+#pragma unroll
+      for (int i = 0; i < V; ++i) missed[i] |= kr & ~v[i];
+    }
+    // OR across the warp's threads on the same columns first, so that each
+    // miss word takes one shared atomic per warp.
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      for (int off = 1 << log_lanes; off < 32; off <<= 1) {
+        missed[i] |= __shfl_xor_sync(0xffffffffu, missed[i], off);
+      }
+      if ((threadIdx.x & 31) < (1 << log_lanes) && missed[i]) atomicOr(&miss[k + i], missed[i]);
+    }
+    __syncthreads();
+    if (threadIdx.x < cb && static_cast<int64_t>(blockIdx.x) * cb + threadIdx.x < c &&
+        miss[threadIdx.x] == 0u) {
+      atomicAdd(count + b, 1ull);
+    }
+  }
+  for (int64_t r = slot; r < w; r += slots) {
+    uint32_t v[V] = {};
+    if (r < w_net) tile_load<V>(v, tile + (r << log_cb) + k);
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if (j + i < c) ob[r * c + j + i] = v[i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -381,25 +560,85 @@ cudaError_t launch_shared(const Args& a) {
   return launch_slices(benes_shared_kernel<kCount>, a, bc, smem, static_cast<int>(a.wp));
 }
 
+// Chunks per block of the wide path's tile in shared memory: the most (a
+// power of two up to 32) that leave room for two blocks on an SM, else for
+// one (0: not even one column fits, so the tile goes to the global scratch,
+// kWideGlobalChunks a block).  At WP = 1024 and one column a thread, 16
+// columns in two blocks ran 1.3x faster than 32 in one block on an H100
+// (PERF.md, the wide path's findings).
+int wide_tile_chunks(int64_t wp) {
+  int cb = 32;
+  while (cb > 1 && static_cast<size_t>(cb * wp) * sizeof(uint32_t) > kSmemPerTwoBlocks) cb /= 2;
+  while (cb > 0 && static_cast<size_t>(cb * wp) * sizeof(uint32_t) > kSmemLimit) cb /= 2;
+  return cb;
+}
+
+constexpr int kWideGlobalChunks = 32;
+
+template <bool kCount, bool kTile, int V>
+cudaError_t launch_wide_mode(const Args& a, uint32_t* scratch, int cb) {
+  const int log_cb = __builtin_ctz(cb);
+  const size_t smem = kTile ? static_cast<size_t>(cb * a.wp) * sizeof(uint32_t) : 0;
+  auto kernel = benes_wide_kernel<kCount, kTile, V>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int64_t blocks = (a.c + cb - 1) / cb;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  for (int64_t e0 = 0; e0 < a.batch; e0 += kMaxGridY) {
+    const int64_t n = a.batch - e0 < kMaxGridY ? a.batch - e0 : kMaxGridY;
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
+    kernel<<<grid, kWideThreads, smem, a.stream>>>(
+        a.x + e0 * a.w * a.c, a.masks + e0 * a.plan_stride, a.sched, a.key,
+        a.out + e0 * a.w * a.c, a.count + (a.count ? e0 : 0),
+        kTile ? nullptr : scratch + e0 * blocks * cb * a.wp, a.w, a.c, log_cb,
+        static_cast<int>(a.wp), static_cast<int>(a.stages), static_cast<int>(a.w_net),
+        a.plan_stride);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// path 2 takes the tile while one fits; path 3 forces the global scratch,
+// which must then hold batch * ceil(c / 32) * 32 * wp words.
+template <bool kCount>
+cudaError_t launch_wide(const Args& a, uint32_t* scratch, bool force_global) {
+  const int cb = wide_tile_chunks(a.wp);
+  if (cb >= 4 && !force_global) return launch_wide_mode<kCount, true, 4>(a, nullptr, cb);
+  if (cb > 0 && !force_global) return launch_wide_mode<kCount, true, 1>(a, nullptr, cb);
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  return launch_wide_mode<kCount, false, 4>(a, scratch, kWideGlobalChunks);
+}
+
 }  // namespace
 
 // x [batch, w, c] -> out [batch, w, c]; masks [*, stages, wp] with element b
 // using masks + b * plan_stride (0: one plan for all); sched int32
 // [stages, 2] of (delta, live rows).  With `key` [w] non-null, also adds
 // element b's match count into the zeroed int64 count[b].  path 0 is the
-// register path (wp a power of two <= 64), 1 the shared path.  Launches
-// ceil(batch / 65535) grids.  Returns cudaGetLastError().
+// register path (wp a power of two <= 64), 1 the shared path, 2 the wide
+// path (its tile, or the global scratch where no tile fits), 3 the wide
+// path on its global scratch.  `scratch` (paths 2 and 3 without a tile)
+// holds batch * ceil(c / 32) * 32 * wp words.  Launches ceil(batch / 65535) grids.  Returns
+// cudaGetLastError().
 extern "C" int csgn_benes(const void* x, const void* masks, const void* sched, const void* key,
-                          void* out, void* count, int64_t batch, int64_t w, int64_t c,
-                          int64_t wp, int64_t stages, int64_t w_net, int64_t plan_stride,
-                          int64_t path, void* stream) {
+                          void* out, void* count, void* scratch, int64_t batch, int64_t w,
+                          int64_t c, int64_t wp, int64_t stages, int64_t w_net,
+                          int64_t plan_stride, int64_t path, void* stream) {
   if (w_net > wp || w_net > w) return cudaErrorInvalidValue;
   const Args a{static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(masks),
                static_cast<const int32_t*>(sched), static_cast<const uint32_t*>(key),
                static_cast<uint32_t*>(out), static_cast<unsigned long long*>(count),
                batch, w, c, wp, stages, w_net, plan_stride, static_cast<cudaStream_t>(stream)};
   const bool counted = key != nullptr;
+  uint32_t* scr = static_cast<uint32_t*>(scratch);
   if (path == 0) return counted ? launch_register_wp<true>(a) : launch_register_wp<false>(a);
   if (path == 1) return counted ? launch_shared<true>(a) : launch_shared<false>(a);
+  if (path == 2 || path == 3) {
+    return counted ? launch_wide<true>(a, scr, path == 3) : launch_wide<false>(a, scr, path == 3);
+  }
   return cudaErrorInvalidValue;
 }

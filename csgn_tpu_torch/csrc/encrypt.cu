@@ -32,7 +32,10 @@
 // per column; K7 does 11 Philox calls of some 60 operations (mul.hi, mul.lo
 // and three-input xors) at W = 40, which puts it near the write bound; K13
 // writes R*4 bytes per column.  Design:
-//   * one thread per column j; the generator call(s) holding rows W and
+//   * one thread per column, at global column j = col0 + its index (col0 is
+//     the first column of a rank's slice of a batch-sharded encrypt, so a
+//     rank's words are the one-device encrypt's columns [col0, col0 + batch));
+//   * the generator call(s) holding rows W and
 //     W + 1 run first, so r and the coin are known before the words are, and
 //     every word is stored once as it is generated (coalesced across the
 //     warp, row by row);
@@ -193,8 +196,8 @@ template <bool kPhilox>
 __global__ void __launch_bounds__(kThreads)
 encrypt_kernel(const int32_t* __restrict__ bits, const int32_t* __restrict__ key_idx,
                const uint32_t* __restrict__ mask, const uint32_t* __restrict__ valid,
-               uint32_t* __restrict__ out, int64_t w, int64_t d, int64_t batch, uint32_t k0,
-               uint32_t k1) {
+               uint32_t* __restrict__ out, int64_t w, int64_t d, int64_t batch, int64_t col0,
+               uint32_t k0, uint32_t k1) {
   extern __shared__ uint32_t sm[];  // mask [w], then valid mask [w]
   for (int64_t r = threadIdx.x; r < w; r += blockDim.x) {
     sm[r] = mask[r];
@@ -203,7 +206,7 @@ encrypt_kernel(const int32_t* __restrict__ bits, const int32_t* __restrict__ key
   __syncthreads();
   const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (j >= batch) return;
-  const uint32_t cj = static_cast<uint32_t>(j);
+  const uint32_t cj = static_cast<uint32_t>(col0 + j);
   const bool one = (bits[j] & 1) != 0;
   if (kPhilox) {
     encrypt_column(Philox{k0, k1, cj}, one, key_idx, d, sm, sm + w, out + j, w, batch);
@@ -235,40 +238,43 @@ philox_streams_kernel(uint32_t* __restrict__ out, int64_t rows, int64_t batch, u
 
 template <bool kPhilox>
 int launch_encrypt(const void* bits, const void* key_idx, const void* mask, const void* valid,
-                   void* out, int64_t w, int64_t d, int64_t batch, int64_t seed_lo,
-                   int64_t seed_hi, void* stream) {
+                   void* out, int64_t w, int64_t d, int64_t batch, int64_t col0,
+                   int64_t seed_lo, int64_t seed_hi, void* stream) {
   const int64_t blocks = (batch + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffff || d <= 0) return cudaErrorInvalidConfiguration;
+  if (blocks > 0x7fffffff || d <= 0 || col0 < 0 || col0 + batch > (int64_t{1} << 32)) {
+    return cudaErrorInvalidConfiguration;
+  }
   encrypt_kernel<kPhilox><<<static_cast<unsigned>(blocks), kThreads,
                             2 * static_cast<size_t>(w) * sizeof(uint32_t),
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(bits), static_cast<const int32_t*>(key_idx),
       static_cast<const uint32_t*>(mask), static_cast<const uint32_t*>(valid),
-      static_cast<uint32_t*>(out), w, d, batch, static_cast<uint32_t>(seed_lo),
+      static_cast<uint32_t*>(out), w, d, batch, col0, static_cast<uint32_t>(seed_lo),
       static_cast<uint32_t>(seed_hi));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// bits int32 [batch], key_idx int32 [d], mask / valid uint32 [w] -> out [w, batch].
+// bits int32 [batch], key_idx int32 [d], mask / valid uint32 [w] -> out [w, batch],
+// the columns [col0, col0 + batch) of the stream (col0 + batch <= 2^32).
 // seed_lo / seed_hi are the two 32-bit halves of the seed.  Returns
 // cudaGetLastError().
 extern "C" int csgn_encrypt_counter(const void* bits, const void* key_idx, const void* mask,
                                     const void* valid, void* out, int64_t w, int64_t d,
-                                    int64_t batch, int64_t seed_lo, int64_t seed_hi,
-                                    void* stream) {
-  return launch_encrypt<false>(bits, key_idx, mask, valid, out, w, d, batch, seed_lo, seed_hi,
-                               stream);
+                                    int64_t batch, int64_t col0, int64_t seed_lo,
+                                    int64_t seed_hi, void* stream) {
+  return launch_encrypt<false>(bits, key_idx, mask, valid, out, w, d, batch, col0, seed_lo,
+                               seed_hi, stream);
 }
 
 // The Philox engine, same arguments as csgn_encrypt_counter.
 extern "C" int csgn_encrypt_philox(const void* bits, const void* key_idx, const void* mask,
                                    const void* valid, void* out, int64_t w, int64_t d,
-                                   int64_t batch, int64_t seed_lo, int64_t seed_hi,
-                                   void* stream) {
-  return launch_encrypt<true>(bits, key_idx, mask, valid, out, w, d, batch, seed_lo, seed_hi,
-                              stream);
+                                   int64_t batch, int64_t col0, int64_t seed_lo,
+                                   int64_t seed_hi, void* stream) {
+  return launch_encrypt<true>(bits, key_idx, mask, valid, out, w, d, batch, col0, seed_lo,
+                              seed_hi, stream);
 }
 
 // out uint32 [rows, batch]: the Philox stream's rows, raw.  Returns

@@ -17,12 +17,16 @@ into one file.  The sharded checkpoint is a directory:
   <name>.c<start>.npy    chunk-major uint32[count, W] payload block
   aux.npz                the keys and permutations, via `save_state`
 
-This module writes one block per ciphertext (one process holds the whole
-payload) and loads any block table, such as the 8-block directories that
-the JAX package writes from a chunk-sharded mesh.  The JAX package's
-per-process writes and its resharding load onto a mesh (``mesh=``) wait for
-the port's multi-device layer.  Loads put the objects on `device`: None is
-the current CUDA device, ``"cpu"`` the CPU.
+Without a mesh, one process writes one block per ciphertext.  With a mesh
+of ranks (`csgn_tpu_torch.parallel`), every rank calls
+`save_state_sharded` with its own chunk blocks and writes them, and rank 0
+writes the manifest with the global block table; no rank holds a whole
+payload.  Loads read any block table, such as the 8-block directories that
+the JAX package writes from a chunk-sharded mesh, and with ``mesh=`` each
+rank reads only the column range of its block (memory-mapped), zero-padded
+up to the new axis size, so a job resumes on any number of ranks.  Loads put
+the objects on `device` (None is the current CUDA device, ``"cpu"`` the CPU)
+or, with a mesh, on the mesh's device.
 """
 
 from __future__ import annotations
@@ -175,51 +179,109 @@ def load_state(path, device=None) -> dict:
 # -- sharded checkpoints ------------------------------------------------------
 
 
-def save_state_sharded(dirpath, objects: dict) -> None:
-    """Checkpoint {name: Ciphertext|SecretKey|Permutation} as a directory:
-    each ciphertext's payload as one block file, the rest in ``aux.npz``,
-    and the manifest (the JAX package's `save_state_sharded` format)."""
-    p = pathlib.Path(dirpath)
-    p.mkdir(parents=True, exist_ok=True)
-    manifest: dict = {"version": FORMAT_VERSION, "entries": {}}
-    aux: dict = {}
+def _block_entries(objects: dict, mesh, axis: str) -> tuple[dict, dict]:
+    """This rank's ``{name: [start, count, file, n, d]}`` (chunk-axis blocks,
+    written by the rank whose other coordinates are all 0) and the rest."""
+    blocks, aux = {}, {}
     for name, obj in objects.items():
         _check_name(name)
         if not isinstance(obj, Ciphertext):
             aux[name] = obj
             continue
-        fname = f"{name}.c0.npy"
-        np.save(p / fname, np.ascontiguousarray(obj.chunk_major()))
-        manifest["entries"][name] = {
-            "n": obj.ctx.n, "d": obj.ctx.d, "chunks": obj.chunks,
-            "blocks": [[0, obj.chunks, fname]],
-        }
-    if aux:
-        save_state(p / "aux.npz", aux)
-    (p / MANIFEST).write_text(json.dumps(manifest))
+        c = obj.chunks
+        start = 0 if mesh is None else mesh.coord(axis) * c
+        blocks[name] = [start, c, f"{name}.c{start}.npy", obj.ctx.n, obj.ctx.d]
+    return blocks, aux
 
 
-def _read_blocks(path: pathlib.Path, name: str, blocks, w: int, chunks: int) -> np.ndarray:
-    """Word-major uint32 ``[W, chunks]`` assembled from every block in column
-    order.  Nothing is padded: the blocks must tile ``[0, chunks)``."""
+def save_state_sharded(dirpath, objects: dict, mesh=None, axis: str = "c") -> None:
+    """Checkpoint {name: Ciphertext|SecretKey|Permutation} as a directory: the
+    ciphertext payloads as block files, the rest in ``aux.npz``, and the
+    manifest (the JAX package's `save_state_sharded` format).
+
+    Without `mesh`, one process writes each ciphertext as one block.  With a
+    mesh, call it from every rank of the mesh (a collective), each with its
+    own blocks of the chunk-sharded ciphertexts (equal sizes, as
+    `parallel.shard_ciphertext` cuts them); keys and permutations are the
+    same on every rank.  Each rank writes its blocks (ranks off coordinate
+    0 of the other axes hold replicas and write none), rank 0 of the mesh
+    writes the aux file and the manifest with the block table gathered from
+    every rank (`all_gather_object`), and all ranks return after the
+    manifest is written.
+    """
+    import torch.distributed as dist
+
+    p = pathlib.Path(dirpath)
+    p.mkdir(parents=True, exist_ok=True)
+    blocks, aux = _block_entries(objects, mesh, axis)
+    writer = mesh is None or all(mesh.coord(a) == 0 for a in mesh.axis_names if a != axis)
+    if writer:
+        for name, (_, _, fname, _, _) in blocks.items():
+            np.save(p / fname, np.ascontiguousarray(objects[name].chunk_major()))
+    tables = [blocks]
+    if mesh is not None:
+        tables = [None] * mesh.size
+        dist.all_gather_object(tables, blocks, group=mesh.group_all)
+    if mesh is None or dist.get_rank() == int(mesh.ranks.reshape(-1)[0]):
+        manifest: dict = {"version": FORMAT_VERSION, "entries": {}}
+        for name in blocks:
+            table = sorted({tuple(t[name][:3]) for t in tables})
+            n, d = blocks[name][3:]
+            if any(t[name][3:] != [n, d] for t in tables):
+                raise ValueError(f"{name!r}: ranks disagree on the context")
+            manifest["entries"][name] = {
+                "n": n, "d": d, "chunks": sum(cnt for _, cnt, _ in table),
+                "blocks": [list(b) for b in table],
+            }
+        if aux:
+            save_state(p / "aux.npz", aux)
+        (p / MANIFEST).write_text(json.dumps(manifest))
+    if mesh is not None:
+        dist.barrier(group=mesh.group_all)
+
+
+def _read_cols(path: pathlib.Path, name: str, blocks, w: int, chunks: int, col0: int,
+               col1: int) -> np.ndarray:
+    """Word-major uint32 ``[W, col1 - col0]`` from the blocks, which must tile
+    ``[0, chunks)`` in column order; only the needed rows of each
+    memory-mapped block file are read, and columns at or past `chunks` are
+    zero pad (a resume onto a mesh that does not divide the chunk count)."""
     parts, end = [], 0
     for start, cnt, fname in sorted(blocks):
+        if start != end:
+            break
+        end += cnt
+        lo, hi = max(col0, start), min(col1, start + cnt)
+        if lo >= hi:
+            continue
         blk = np.load(path / fname, mmap_mode="r")
         if blk.ndim != 2 or blk.shape != (cnt, w):
             raise ValueError(f"{name!r}: block {fname} has shape {blk.shape}, not [{cnt}, W={w}]")
-        if start != end:
-            break
-        parts.append(np.ascontiguousarray(blk.T))
-        end += cnt
+        parts.append(np.ascontiguousarray(blk[lo - start:hi - start].T))
     if end != chunks:
         raise ValueError(f"{name!r}: blocks do not cover [0, {chunks})")
+    if col1 > chunks:
+        parts.append(np.zeros((w, col1 - max(col0, chunks)), np.uint32))
     return np.concatenate(parts, axis=1) if parts else np.zeros((w, 0), np.uint32)
 
 
-def load_state_sharded(dirpath, device=None) -> dict:
-    """Load a sharded checkpoint written by either package; every
-    ciphertext's payload is assembled from its blocks, whatever their number
-    and sizes, at its exact saved chunk count."""
+def load_state_sharded(dirpath, mesh=None, axis: str = "c", device=None) -> dict:
+    """Load a sharded checkpoint written by either package.
+
+    Without `mesh`, every ciphertext's payload is assembled from its blocks,
+    whatever their number and sizes, at its exact saved chunk count, on
+    `device`.  With a mesh (call it from the ranks of the mesh), each rank
+    gets its own block: the chunk count is zero-padded up to a multiple of
+    the axis size (pad chunks are canonical and parity-neutral, as
+    `parallel.shard_ciphertext` pads), and the rank reads only the column
+    range of its block, on the mesh's device.  The mesh need not have the
+    shape the checkpoint was written on.
+    """
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("load_state_sharded: a mesh load puts the blocks on the mesh's "
+                             "device; pass mesh or device, not both")
+        device = mesh.device
     device = resolve_device(device)
     p = pathlib.Path(dirpath)
     manifest = json.loads((p / MANIFEST).read_text())
@@ -231,6 +293,13 @@ def load_state_sharded(dirpath, device=None) -> dict:
     for name, ent in manifest["entries"].items():
         ctx = Context(int(ent["n"]), int(ent["d"]))
         blocks = [(int(s), int(c), f) for s, c, f in ent["blocks"]]
-        words = _read_blocks(p, name, blocks, ctx.words32, int(ent["chunks"]))
+        c = int(ent["chunks"])
+        col0, col1 = 0, c
+        if mesh is not None:
+            nd = mesh.shape[axis]
+            blk = -(-c // nd)
+            col0 = mesh.coord(axis) * blk
+            col1 = col0 + blk
+        words = _read_cols(p, name, blocks, ctx.words32, c, col0, col1)
         out[name] = Ciphertext(words_from_numpy(words, device), ctx)
     return out

@@ -73,6 +73,9 @@ LAUNCHES = {
     "apply_benes": 0,
     "apply_benes_batch": 0,
     "apply_benes_decrypt": 0,
+    # launches of the three Beneš wrappers on the wide path (WP > 512), also
+    # counted under the wrapper's own key
+    "benes_wide": 0,
 }
 
 _P = ctypes.c_void_p
@@ -82,12 +85,12 @@ _SIGNATURES = {
     "csgn_mul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # words, mask, out, batch, w, c, per_chunk, vec, stream
     "csgn_decrypt": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # x, masks, sched, key, out, count, batch, w, c, wp, stages, w_net, plan_stride, path,
-    # stream
-    "csgn_benes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # bits, key_idx, mask, valid, out, w, d, batch, seed_lo, seed_hi, stream
-    "csgn_encrypt_counter": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "csgn_encrypt_philox": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, masks, sched, key, out, count, scratch, batch, w, c, wp, stages, w_net,
+    # plan_stride, path, stream
+    "csgn_benes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    # bits, key_idx, mask, valid, out, w, d, batch, col0, seed_lo, seed_hi, stream
+    "csgn_encrypt_counter": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "csgn_encrypt_philox": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # out, rows, batch, seed_lo, seed_hi, stream
     "csgn_philox_streams": (_P, _I, _I, _I, _I, _P),
     # out, value, w, c, stream

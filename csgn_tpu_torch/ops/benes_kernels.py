@@ -15,19 +15,26 @@ and `apply_benes_decrypt_plain`.  Routing is by the tensors' device, as in
 launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES[<wrapper name>]``.
 
-csrc/benes.cu has two paths, chosen by the network's width WP = n_pad / 32
-(`benes_path`), both counted under the same ``LAUNCHES`` keys:
+csrc/benes.cu has three paths, chosen by the network's width WP = n_pad / 32
+(`benes_path`), all counted under the same ``LAUNCHES`` keys:
 
   * "register" for WP <= `REGISTER_WORDS_PAD` (64, n <= 2048): each thread
     keeps its chunk column in registers, the rows unrolled at compile time
     for each WP in 1, 2, 4, ..., 64;
-  * "shared" for larger networks, up to `MAX_WORDS_PAD`: the column lives
-    in shared memory.
+  * "shared" up to `SHARED_WORDS_PAD` (512, n <= 16384): the column lives in
+    shared memory, the plan's masks staged beside it;
+  * "wide" above, at any n: a block's threads split each stage's rows over
+    a tile of up to 32 chunk columns (four columns a thread), the masks read
+    from global memory; the tile is in shared memory while one column fits
+    (WP <= 32768) and else in a global scratch that the wrapper allocates
+    (``path="global"`` forces that form, for tests and timing).  Its
+    launches also count under ``LAUNCHES["benes_wide"]``.
 
-This is routing by shape, not a fallback: a build or launch failure of
-either path raises.  `network_deltas` is the stage sequence every plan of an
-n_pad has, and `network_ops` the integer operations per chunk that bound the
-kernels on the card.
+This is routing by shape, not a fallback: a build or launch failure of any
+path raises, and only an allocation the card cannot hold refuses a size.
+`network_deltas` is the stage sequence every plan of an n_pad has, and
+`network_ops` the integer operations per chunk that bound the kernels on
+the card.
 """
 
 from __future__ import annotations
@@ -50,8 +57,9 @@ __all__ = [
     "benes_path",
     "network_deltas",
     "network_ops",
-    "MAX_WORDS_PAD",
     "REGISTER_WORDS_PAD",
+    "SHARED_WORDS_PAD",
+    "WIDE_TILE_WORDS_PAD",
 ]
 
 apply_benes_plain = pb.apply_benes
@@ -59,22 +67,27 @@ apply_benes_batch_plain = pb.apply_benes_batch
 apply_benes_decrypt_plain = pb.apply_benes_decrypt_plain
 
 # The register path holds a chunk column of WP words in registers (64 of a
-# thread's 255 at WP = 64, with no spills); wider networks take the shared
-# path, whose block holds one column per thread (WP words) plus the plan's
-# masks (S x WP words) in shared memory, with at least 32 columns per block,
-# up to MAX_WORDS_PAD (n <= 16384).
+# thread's 255 at WP = 64, with no spills); the shared path's block holds one
+# column per thread (WP words) plus the plan's masks (S x WP words) in shared
+# memory, with at least 32 columns per block, up to SHARED_WORDS_PAD (n <=
+# 16384); the wide path takes every wider network.  Its tile holds at least
+# one column of WP words in the 227 KB of shared memory a block may use, up
+# to WIDE_TILE_WORDS_PAD; past it each block's tile of _WIDE_GLOBAL_CHUNKS
+# columns lives in a global scratch.
 REGISTER_WORDS_PAD = 64
-MAX_WORDS_PAD = 512
-_PATH_CODES = {"register": 0, "shared": 1}
+SHARED_WORDS_PAD = 512
+WIDE_TILE_WORDS_PAD = 32768
+_WIDE_GLOBAL_CHUNKS = 32
+_PATH_CODES = {"register": 0, "shared": 1, "wide": 2, "global": 3}
 
 
 def benes_path(words_pad: int) -> str:
     """The path of csrc/benes.cu for a network of `words_pad` words:
-    "register" up to `REGISTER_WORDS_PAD`, "shared" up to `MAX_WORDS_PAD`."""
-    if words_pad > MAX_WORDS_PAD:
-        raise ValueError(f"n_pad {words_pad * 32} exceeds the Beneš kernel's "
-                         f"{MAX_WORDS_PAD * 32}-bit network")
-    return "register" if words_pad <= REGISTER_WORDS_PAD else "shared"
+    "register" up to `REGISTER_WORDS_PAD`, "shared" up to
+    `SHARED_WORDS_PAD`, "wide" above."""
+    if words_pad <= REGISTER_WORDS_PAD:
+        return "register"
+    return "shared" if words_pad <= SHARED_WORDS_PAD else "wide"
 
 
 def network_deltas(n_pad: int) -> tuple[int, ...]:
@@ -114,13 +127,20 @@ def _benes_cuda(name: str, words: torch.Tensor, plan, plan_stride: int,
     count = None if key is None else torch.zeros(lead, dtype=torch.int64, device=words.device)
     if words.numel():
         batch = lead[0] if lead else 1
+        scratch = None
+        if path == "global" or (path == "wide" and plan.words_pad > WIDE_TILE_WORDS_PAD):
+            blocks = -(-c // _WIDE_GLOBAL_CHUNKS)
+            scratch = torch.empty((batch, blocks * _WIDE_GLOBAL_CHUNKS, plan.words_pad),
+                                  dtype=torch.int32, device=words.device)
         with torch.cuda.device(words.device):
             check(name, lib().csgn_benes(
                 ptr(words), ptr(masks), ptr(sched), ptr(key), ptr(out), ptr(count),
-                batch, w, c, plan.words_pad, len(plan.deltas), min(w, plan.words_pad),
-                plan_stride, _PATH_CODES[path], stream_of(words)
+                ptr(scratch), batch, w, c, plan.words_pad, len(plan.deltas),
+                min(w, plan.words_pad), plan_stride, _PATH_CODES[path], stream_of(words)
             ))
         LAUNCHES[name] += grids(batch)
+        if path in ("wide", "global"):
+            LAUNCHES["benes_wide"] += grids(batch)
     return out, count
 
 

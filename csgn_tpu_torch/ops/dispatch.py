@@ -47,6 +47,7 @@ __all__ = [
     "mul_decrypt",
     "mul_decrypt_count",
     "decrypt_parity",
+    "decrypt_count",
     "chunk_matches",
     "mul_chunks_batched",
     "mul_decrypt_batched",
@@ -86,6 +87,14 @@ def decrypt_parity(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     of each element of a batch [B, W, C] (int64[B])."""
     _path("decrypt", words)
     return kernels.decrypt_parity(words, mask)
+
+
+def decrypt_count(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The exact int64 match count of [W, C] (0-dim), or of each element of a
+    batch [B, W, C] (int64[B]): `decrypt_parity` before the mod 2, the
+    summable form a sharded decrypt reduces across ranks (K3)."""
+    _path("decrypt", words)
+    return kernels.decrypt_parity(words, mask, return_count=True)
 
 
 def chunk_matches(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

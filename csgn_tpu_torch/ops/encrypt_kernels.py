@@ -38,6 +38,12 @@ The plain versions run the uint32 arithmetic in int64 masked to 32 bits
 int32 view.  Philox's 32 x 32-bit products would overflow int64, so one
 factor is split into 16-bit halves and every partial product stays below
 2^48.
+
+Both engines take a global column base ``col0``: the batch is the stream's
+columns ``[col0, col0 + batch)``, so a rank that encrypts its block of a
+batch-sharded encrypt gets exactly the one-device encrypt's columns of that
+block (`parallel.sharded_encrypt_bits`).  The JAX counter stream takes the
+same base (`_counter_stream(..., col0)`, csgn_tpu/ops/encrypt_pallas.py:278).
 """
 
 from __future__ import annotations
@@ -148,22 +154,24 @@ def derive_words(stream: torch.Tensor, bits: torch.Tensor, key_idx: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def _counter_stream(seed: int, w: int, batch: int, device) -> torch.Tensor:
+def _counter_stream(seed: int, w: int, batch: int, device, col0: int = 0) -> torch.Tensor:
     r2 = (w + 3) // 2
     seed_lo, seed_hi = _seed_halves(seed)
     c0 = torch.arange(r2, dtype=torch.int64, device=device)[:, None].expand(r2, batch)
-    c1 = torch.arange(batch, dtype=torch.int64, device=device)[None, :].expand(r2, batch)
+    c1 = torch.arange(col0, col0 + batch, dtype=torch.int64,
+                      device=device)[None, :].expand(r2, batch)
     y0, y1 = threefry2x32(seed_lo, seed_hi, c0, c1)
     return torch.cat([y0, y1])                                    # [2 * r2, batch]
 
 
-def philox_streams_plain(seed: int, batch: int, rows: int, device=None) -> torch.Tensor:
+def philox_streams_plain(seed: int, batch: int, rows: int, device=None,
+                         col0: int = 0) -> torch.Tensor:
     """The Philox engine's raw stream, rows int64 ``[rows, batch]`` of uint32
-    values (see the module docstring), computed one group of four rows at a
-    time."""
+    values (see the module docstring) at columns ``[col0, col0 + batch)``,
+    computed one group of four rows at a time."""
     device = resolve_device(device)
     seed_lo, seed_hi = _seed_halves(seed)
-    j = torch.arange(batch, dtype=torch.int64, device=device)
+    j = torch.arange(col0, col0 + batch, dtype=torch.int64, device=device)
     out = []
     for g in range(-(-rows // 4)):
         out.extend(philox4x32_10(j, g, 0, 0, seed_lo, seed_hi))
@@ -174,18 +182,20 @@ def philox_streams_plain(seed: int, batch: int, rows: int, device=None) -> torch
 
 
 def encrypt_bits_counter_plain(seed: int, bits: torch.Tensor, key_idx: torch.Tensor,
-                               mask: torch.Tensor, valid_mask: torch.Tensor) -> torch.Tensor:
-    """Encrypt bits[batch] -> int32[W, batch] on the counter engine (plain
-    torch, any device)."""
-    stream = _counter_stream(seed, mask.shape[0], bits.shape[0], bits.device)
+                               mask: torch.Tensor, valid_mask: torch.Tensor, *,
+                               col0: int = 0) -> torch.Tensor:
+    """Encrypt bits[batch] -> int32[W, batch] on the counter engine at
+    columns ``[col0, col0 + batch)`` (plain torch, any device)."""
+    stream = _counter_stream(seed, mask.shape[0], bits.shape[0], bits.device, col0)
     return derive_words(stream, bits, key_idx, mask, valid_mask)
 
 
 def encrypt_bits_philox_plain(seed: int, bits: torch.Tensor, key_idx: torch.Tensor,
-                              mask: torch.Tensor, valid_mask: torch.Tensor) -> torch.Tensor:
-    """Encrypt bits[batch] -> int32[W, batch] on the Philox engine (plain
-    torch, any device)."""
-    stream = philox_streams_plain(seed, bits.shape[0], mask.shape[0] + 2, bits.device)
+                              mask: torch.Tensor, valid_mask: torch.Tensor, *,
+                              col0: int = 0) -> torch.Tensor:
+    """Encrypt bits[batch] -> int32[W, batch] on the Philox engine at
+    columns ``[col0, col0 + batch)`` (plain torch, any device)."""
+    stream = philox_streams_plain(seed, bits.shape[0], mask.shape[0] + 2, bits.device, col0)
     return derive_words(stream, bits, key_idx, mask, valid_mask)
 
 
@@ -194,7 +204,7 @@ def encrypt_bits_philox_plain(seed: int, bits: torch.Tensor, key_idx: torch.Tens
 # ---------------------------------------------------------------------------
 
 
-def _check_encrypt_operands(name, bits, key_idx, mask, valid_mask) -> None:
+def _check_encrypt_operands(name, bits, key_idx, mask, valid_mask, col0: int = 0) -> None:
     for arg, t in (("bits", bits), ("key_idx", key_idx), ("mask", mask),
                    ("valid_mask", valid_mask)):
         if not isinstance(t, torch.Tensor):
@@ -214,9 +224,13 @@ def _check_encrypt_operands(name, bits, key_idx, mask, valid_mask) -> None:
         raise ValueError(f"{name}: need at least one key index")
     if bits.shape[0] >= 1 << 32:
         raise ValueError(f"{name}: batch must be < 2^32 (uint32 counters)")
+    if col0 < 0 or col0 + bits.shape[0] > 1 << 32:
+        raise ValueError(f"{name}: columns [col0, col0 + batch) must lie in [0, 2^32), "
+                         f"got col0={col0}")
 
 
-def _encrypt_cuda(name: str, entry: str, seed: int, bits, key_idx, mask, valid_mask):
+def _encrypt_cuda(name: str, entry: str, seed: int, bits, key_idx, mask, valid_mask,
+                  col0: int):
     w, d, batch = mask.shape[0], key_idx.shape[0], bits.shape[0]
     out = torch.empty((w, batch), dtype=torch.int32, device=bits.device)
     if batch:
@@ -225,7 +239,7 @@ def _encrypt_cuda(name: str, entry: str, seed: int, bits, key_idx, mask, valid_m
         with torch.cuda.device(bits.device):
             check(name, getattr(lib(), entry)(
                 ptr(bits32), ptr(key_idx.contiguous()), ptr(mask.contiguous()),
-                ptr(valid_mask.contiguous()), ptr(out), w, d, batch, seed_lo, seed_hi,
+                ptr(valid_mask.contiguous()), ptr(out), w, d, batch, col0, seed_lo, seed_hi,
                 stream_of(bits),
             ))
         LAUNCHES[name] += 1
@@ -233,33 +247,37 @@ def _encrypt_cuda(name: str, entry: str, seed: int, bits, key_idx, mask, valid_m
 
 
 def encrypt_bits_counter(seed: int, bits: torch.Tensor, key_idx: torch.Tensor,
-                         mask: torch.Tensor, valid_mask: torch.Tensor) -> torch.Tensor:
-    """Encrypt bits[batch] -> int32[W, batch] on the counter engine.
+                         mask: torch.Tensor, valid_mask: torch.Tensor, *,
+                         col0: int = 0) -> torch.Tensor:
+    """Encrypt bits[batch] -> int32[W, batch] on the counter engine, as the
+    stream's columns ``[col0, col0 + batch)``.
 
     Bit-equal to `encrypt_bits_counter_plain` (and to the JAX package's
     `encrypt_bits_counter_ref`) for every batch size.  CPU tensors take the
     plain version; CUDA tensors launch csrc/encrypt.cu or raise.
     """
-    _check_encrypt_operands("encrypt_bits_counter", bits, key_idx, mask, valid_mask)
+    _check_encrypt_operands("encrypt_bits_counter", bits, key_idx, mask, valid_mask, col0)
     if bits.device.type == "cpu":
-        return encrypt_bits_counter_plain(seed, bits, key_idx, mask, valid_mask)
+        return encrypt_bits_counter_plain(seed, bits, key_idx, mask, valid_mask, col0=col0)
     return _encrypt_cuda("encrypt_bits_counter", "csgn_encrypt_counter", seed, bits,
-                         key_idx, mask, valid_mask)
+                         key_idx, mask, valid_mask, col0)
 
 
 def encrypt_bits_philox(seed: int, bits: torch.Tensor, key_idx: torch.Tensor,
-                        mask: torch.Tensor, valid_mask: torch.Tensor) -> torch.Tensor:
-    """Encrypt bits[batch] -> int32[W, batch] on the Philox engine (K7).
+                        mask: torch.Tensor, valid_mask: torch.Tensor, *,
+                        col0: int = 0) -> torch.Tensor:
+    """Encrypt bits[batch] -> int32[W, batch] on the Philox engine (K7), as
+    the stream's columns ``[col0, col0 + batch)``.
 
     Bit-equal to `encrypt_bits_philox_plain` for every batch size.  CPU
     tensors take the plain version; CUDA tensors launch csrc/encrypt.cu or
     raise.
     """
-    _check_encrypt_operands("encrypt_bits_philox", bits, key_idx, mask, valid_mask)
+    _check_encrypt_operands("encrypt_bits_philox", bits, key_idx, mask, valid_mask, col0)
     if bits.device.type == "cpu":
-        return encrypt_bits_philox_plain(seed, bits, key_idx, mask, valid_mask)
+        return encrypt_bits_philox_plain(seed, bits, key_idx, mask, valid_mask, col0=col0)
     return _encrypt_cuda("encrypt_bits_philox", "csgn_encrypt_philox", seed, bits,
-                         key_idx, mask, valid_mask)
+                         key_idx, mask, valid_mask, col0)
 
 
 def philox_streams(seed: int, batch: int, rows: int, device=None) -> torch.Tensor:

@@ -225,13 +225,19 @@ def _decrypt_cuda(name: str, words: torch.Tensor, mask: torch.Tensor, per_chunk:
     return out
 
 
-def decrypt_parity(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def decrypt_parity(words: torch.Tensor, mask: torch.Tensor, *,
+                   return_count: bool = False) -> torch.Tensor:
     """Decrypt [W, chunks] with mask [W] -> parity bit (int64 0-dim tensor);
-    batched [B, W, chunks] -> int64[B]."""
+    batched [B, W, chunks] -> int64[B].  ``return_count=True`` returns the
+    exact int64 match count instead of the parity (the summable form a
+    sharded decrypt reduces across ranks)."""
     _check_operands("decrypt_parity", (words,), mask)
     if words.device.type == "cpu":
+        if return_count:
+            return core.chunk_matches(words, mask).sum(dim=-1)
         return decrypt_parity_plain(words, mask)
-    return _decrypt_cuda("decrypt_parity", words, mask, False) & 1
+    count = _decrypt_cuda("decrypt_parity", words, mask, False)
+    return count if return_count else count & 1
 
 
 def chunk_matches(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,6 @@
 """Deep-circuit pipelines: multiplication chains with growth budgeting.
 
-Counterpart of `csgn_tpu.pipeline` (the unsharded part; the sharded chains
-come with the multi-device layer).  Chunk counts multiply under homomorphic
+Counterpart of `csgn_tpu.pipeline`.  Chunk counts multiply under homomorphic
 multiply (the scheme is *bounded*), so deep chains are a memory problem
 before they are a kernel problem:
 
@@ -13,7 +12,10 @@ before they are a kernel problem:
     once and never re-read;
   * `chain_chunks` — closed-form growth accounting, for budgeting before
     running (and for deciding where the key holder should
-    `SecretKey.recrypt`).
+    `SecretKey.recrypt`);
+  * `mul_chain_sharded` / `mul_chain_sharded_decrypt` — the same folds with
+    the accumulator chunk-sharded over a mesh of ranks (`parallel`): each
+    rank holds and grows its own block.
 
 Both chains refuse, before anything is allocated, a fold whose peak live
 intermediates exceed ``budget_bytes``.  The default budget is 3/4 of the
@@ -28,6 +30,10 @@ import torch
 
 from csgn_tpu_torch.ciphertext import Ciphertext
 from csgn_tpu_torch.ops import dispatch
+from csgn_tpu_torch.parallel.mesh import CHUNK_AXIS, Mesh
+from csgn_tpu_torch.parallel.multihost import shard_ciphertext
+from csgn_tpu_torch.parallel.ops import (sharded_decrypt_parity, sharded_mul_allgather,
+                                         sharded_mul_broadcast, sharded_mul_decrypt)
 from csgn_tpu_torch.plaintext import Plaintext
 
 __all__ = [
@@ -36,6 +42,8 @@ __all__ = [
     "chain_chunks",
     "mul_chain",
     "mul_chain_decrypt",
+    "mul_chain_sharded",
+    "mul_chain_sharded_decrypt",
 ]
 
 # The JAX package's default chain budget (csgn_tpu/pipeline.py:48): the
@@ -130,4 +138,59 @@ def mul_chain_decrypt(
         words, parity = dispatch.mul_decrypt(acc, cts[-1].wt, mask)
     else:
         words, parity = acc, dispatch.decrypt_parity(acc, mask)
+    return Ciphertext(words, cts[0].ctx), Plaintext(int(parity))
+
+
+def _sharded_step(acc: torch.Tensor, ct: Ciphertext, mesh: Mesh, axis: str) -> torch.Tensor:
+    """One fold step on this rank's accumulator block: an operand whose chunk
+    count divides the axis is cut into blocks and all-gathered, any other
+    stays replicated (the JAX package's choice per operand)."""
+    if ct.chunks % mesh.shape[axis] == 0:
+        return sharded_mul_allgather(acc, shard_ciphertext(ct, mesh, axis).wt, mesh, axis)
+    return sharded_mul_broadcast(acc, ct.wt.to(mesh.device), mesh, axis)
+
+
+def mul_chain_sharded(cts: list[Ciphertext], mesh: Mesh, axis: str = CHUNK_AXIS) -> Ciphertext:
+    """`mul_chain` with the accumulator chunk-sharded over the mesh.
+
+    ``cts[0]`` is this rank's block of the first operand (every rank's block
+    the same size, as `parallel.shard_ciphertext` cuts it); the later
+    operands are whole ciphertexts that every rank holds, typically small
+    against the accumulator.  An operand whose chunk count divides the axis
+    goes through `sharded_mul_allgather` (each rank contributes its block),
+    any other through `sharded_mul_broadcast` (no collective).  The i-major
+    output keeps the accumulator contiguously sharded after every step.
+    Returns this rank's block of the product.
+    """
+    _check_contexts(cts)
+    acc = cts[0].wt
+    for ct in cts[1:]:
+        acc = _sharded_step(acc, ct, mesh, axis)
+    return Ciphertext(acc, cts[0].ctx)
+
+
+def mul_chain_sharded_decrypt(cts: list[Ciphertext], sk, mesh: Mesh,
+                              axis: str = CHUNK_AXIS) -> tuple[Ciphertext, Plaintext]:
+    """`mul_chain_sharded` with the final step fused with the decrypt
+    (`parallel.sharded_mul_decrypt`): each rank writes its block of the
+    final product once and never re-reads it, and one int64 all-reduce
+    carries the parity out.  Where the last operand's chunk count does not
+    divide the axis, the last step is a broadcast multiply and the decrypt a
+    sharded K3 count.  Returns ``(this rank's block, the parity)``, the
+    parity the same on every rank.
+    """
+    _check_contexts(cts)
+    if sk.ctx != cts[0].ctx:
+        raise ValueError("secret key context mismatch")
+    mask = sk.mask_words.to(mesh.device)
+    if len(cts) == 1:
+        return cts[0], Plaintext(int(sharded_decrypt_parity(cts[0].wt, mask, mesh, axis)))
+    acc = mul_chain_sharded(cts[:-1], mesh, axis).wt
+    last = cts[-1]
+    if last.chunks % mesh.shape[axis] == 0:
+        words, parity = sharded_mul_decrypt(acc, shard_ciphertext(last, mesh, axis).wt, mask,
+                                            mesh, axis)
+    else:
+        words = sharded_mul_broadcast(acc, last.wt.to(mesh.device), mesh, axis)
+        parity = sharded_decrypt_parity(words, mask, mesh, axis)
     return Ciphertext(words, cts[0].ctx), Plaintext(int(parity))

@@ -2,7 +2,8 @@
 
 csrc/benes.cu's register path unrolls one block per cross-word delta of the
 fixed stage sequence 1, 2, ..., n_pad/2, ..., 2, 1, and `benes_path` routes
-a network to it up to 64 words (n <= 2048), to the shared path above.  The
+a network to it up to 64 words (n <= 2048), to the shared path up to 512
+words (n <= 16384) and to the wide path above.  The
 operation count `network_ops` is what bounds both on the card
 (chip_smoke.py's bound column).  Tolerance: exact.
 """
@@ -42,12 +43,17 @@ def test_path_choice(n):
 
 
 def test_path_limits():
+    """Register path to 64 words, shared path to 512, the wide path above at
+    any width: no network is refused for its size."""
     assert benes_kernels.REGISTER_WORDS_PAD == 64
+    assert benes_kernels.SHARED_WORDS_PAD == 512
     assert benes_kernels.benes_path(1) == "register"
     assert benes_kernels.benes_path(128) == "shared"
-    assert benes_kernels.benes_path(benes_kernels.MAX_WORDS_PAD) == "shared"
-    with pytest.raises(ValueError, match="exceeds"):
-        benes_kernels.benes_path(2 * benes_kernels.MAX_WORDS_PAD)
+    assert benes_kernels.benes_path(benes_kernels.SHARED_WORDS_PAD) == "shared"
+    tile = benes_kernels.WIDE_TILE_WORDS_PAD
+    assert tile * 4 <= 227 * 1024 < 2 * tile * 4   # one column's tile fits, two do not
+    for wp in (2 * benes_kernels.SHARED_WORDS_PAD, 4096, tile, 2 * tile, 1 << 20):
+        assert benes_kernels.benes_path(wp) == "wide"
 
 
 def _hand_plan():
@@ -83,3 +89,28 @@ def test_network_ops_at_the_timed_size():
     assert [benes_kernels.network_ops(p) for p in plans] == [2022, 2022, 2018]
     assert benes_kernels.network_ops(pb.stack_plans(plans)) == [2022, 2022, 2018]
     assert benes_kernels.network_ops(pb.build_plan(np.arange(1247), 1247)) == 0
+
+
+def test_plain_network_past_16384_bits_equals_the_jax_package():
+    """n = 20000 (WP = 1024, the wide path's width on the card): the plain K8
+    and K12 the kernels are held to on the card equal the JAX package's
+    plain Beneš network and the gather oracle."""
+    import jax.numpy as jnp
+    import torch
+
+    from csgn_tpu_torch.layout import words_from_numpy, words_to_numpy
+    from csgn_tpu_torch.ops import core
+
+    n, chunks = 20000, 33
+    rng = np.random.default_rng(20000)
+    perm = rng.permutation(n)
+    plan = pb.build_plan(perm, n)
+    assert plan.words_pad == 1024 and benes_kernels.benes_path(plan.words_pad) == "wide"
+    w = 2 * -(-n // 64)
+    x = rng.integers(0, 2**32, (w, chunks), dtype=np.uint32)
+    x[-1] &= np.uint32(0xFFFFFFFF << (32 - n % 32) & 0xFFFFFFFF)   # canonical: bits < n
+    got = benes_kernels.apply_benes_plain(words_from_numpy(x, "cpu"), plan)
+    want = jpb.apply_benes(jnp.asarray(x), jpb.build_plan(perm, n))
+    np.testing.assert_array_equal(words_to_numpy(got), np.asarray(want))
+    assert torch.equal(got, core.permute_chunks(words_from_numpy(x, "cpu"),
+                                                torch.from_numpy(perm), n))

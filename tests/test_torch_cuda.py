@@ -9,6 +9,10 @@ neither JAX nor csgn_tpu, so it runs where only torch is installed:
 exact: the kernels are integer code.
 """
 
+import functools
+import json
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -135,8 +139,9 @@ def test_launch_counters_count_kernel_launches(dev):
     kernels.chunk_matches(b.wt, sk.mask_words)
     # Every product above has t1*t2 % 4 == 0, so the multiply's aligned mode
     # serves it; the unaligned and tiled modes count under their own keys.
-    # The Philox engine, its stream dump and the write anchor are not called.
-    unused = ("encrypt_bits_philox", "philox_streams", "fill_anchor")
+    # The Philox engine, its stream dump, the write anchor and the Beneš
+    # kernel's wide path (n > 16384) are not called.
+    unused = ("encrypt_bits_philox", "philox_streams", "fill_anchor", "benes_wide")
     for name in before:
         want = before[name] + (0 if name in unused or name.endswith((
             "_unaligned", "_tiled", "_unaligned_batched", "_tiled_batched")) else 1)
@@ -512,3 +517,239 @@ def test_fill_anchor_k5_matches_plain(dev, t1, t2, w):
     got = kernels.fill_anchor(0x1_8000_0001, t1, t2, w, dev)
     assert torch.equal(got, kernels.fill_anchor_plain(0x1_8000_0001, t1, t2, w, dev))
     assert kernels.LAUNCHES["fill_anchor"] == before + 1
+
+
+# ---------------------------------------------------------------------------
+# The Beneš kernel's wide path (n > 16384)
+# ---------------------------------------------------------------------------
+
+WIDE_NS = [16385, 20000, 40000, 70000]   # WP = 1024, 1024, 2048, 4096
+
+
+@functools.cache
+def _wide_perms(n):
+    """Three permutations of n bits with their plans routed (cached: routing
+    takes seconds on the host at these n)."""
+    rng = np.random.default_rng(n)
+    perms = [Permutation(rng.permutation(n)) for _ in range(3)]
+    for q in perms:
+        q.benes_plan()
+    return perms
+
+
+def _wide_case(n, lead, chunks, dev):
+    ctx, _, x = _perm_words(n, lead, chunks, n + chunks, dev)
+    return ctx, x
+
+
+@pytest.mark.parametrize("n", WIDE_NS)
+@pytest.mark.parametrize("chunks", [4096, 1000])
+def test_benes_wide_path_k8_k9_k12_match_plain(dev, n, chunks):
+    """K8, K12 (count and parity) and K9 on the wide path, bit-equal to their
+    plain versions, at 4,096 chunks and at 1,000 (not a multiple of the
+    32-column tile)."""
+    p, q, r = _wide_perms(n)
+    plan = p.benes_plan()
+    assert benes_kernels.benes_path(plan.words_pad) == "wide"
+    ctx, x = _wide_case(n, (), chunks, dev)
+    before = dict(kernels.LAUNCHES)
+    got = benes_kernels.apply_benes(x, plan)
+    assert torch.equal(got, benes_kernels.apply_benes_plain(x, plan))
+    key = _key(ctx, n, "cpu").apply_permutation(p).mask_words.to(dev)
+    x[:, 0:chunks:3] |= core.permute_chunks(key[:, None], torch.tensor(p.inverse().perm), n)
+    out, count = benes_kernels.apply_benes_decrypt(x, plan, key, return_count=True)
+    want_out, want_count = benes_kernels.apply_benes_decrypt_plain(x, plan, key,
+                                                                   return_count=True)
+    assert torch.equal(out, want_out)
+    assert int(count) == int(want_count) >= len(range(0, chunks, 3))
+    assert int(benes_kernels.apply_benes_decrypt(x, plan, key)[1]) == int(want_count) & 1
+    _, xb = _wide_case(n, (2,), chunks, dev)
+    stacked = pb.stack_plans([q.benes_plan(), r.benes_plan()])
+    assert torch.equal(benes_kernels.apply_benes_batch(xb, stacked),
+                       benes_kernels.apply_benes_batch_plain(xb, stacked))
+    assert kernels.LAUNCHES["benes_wide"] == before["benes_wide"] + 4
+    for name, k in (("apply_benes", 1), ("apply_benes_decrypt", 2), ("apply_benes_batch", 1)):
+        assert kernels.LAUNCHES[name] == before[name] + k, name
+
+
+def test_benes_wide_path_one_column_a_thread(dev):
+    """n = 140000 (WP = 8192): the tile holds two columns a block, so each
+    thread works on one column (the V = 1 form), for K8 and K12."""
+    n = 140000
+    ctx, rng, x = _perm_words(n, (), 100, 7, dev)
+    p = Permutation(rng.permutation(n))
+    plan = p.benes_plan()
+    assert plan.words_pad == 8192 and benes_kernels.benes_path(plan.words_pad) == "wide"
+    assert torch.equal(benes_kernels.apply_benes(x, plan),
+                       benes_kernels.apply_benes_plain(x, plan))
+    key = _key(ctx, n, "cpu").apply_permutation(p).mask_words.to(dev)
+    x[:, 0:100:3] |= core.permute_chunks(key[:, None], torch.tensor(p.inverse().perm), n)
+    out, count = benes_kernels.apply_benes_decrypt(x, plan, key, return_count=True)
+    want_out, want_count = benes_kernels.apply_benes_decrypt_plain(x, plan, key,
+                                                                   return_count=True)
+    assert torch.equal(out, want_out) and int(count) == int(want_count) >= 34
+
+
+@pytest.mark.parametrize("n", [20, 1247, 4095, 20000])
+def test_benes_wide_and_global_forms_match_plain(dev, n):
+    """The wide path forced onto narrow networks (n < 32 included), and its
+    global-scratch form (taken past 32,768 words) forced at n <= 20000."""
+    ctx, rng, x = _perm_words(n, (), 129, n + 3, dev)
+    p = Permutation(rng.permutation(n))
+    plan = p.benes_plan()
+    key = _key(ctx, n, "cpu").apply_permutation(p).mask_words.to(dev)
+    x[:, 0:129:4] |= core.permute_chunks(key[:, None], torch.tensor(p.inverse().perm), n)
+    want_out, want_count = benes_kernels.apply_benes_decrypt_plain(x, plan, key,
+                                                                   return_count=True)
+    _, _, xb = _perm_words(n, (3,), 129, n + 4, dev)
+    stacked = pb.stack_plans([Permutation(rng.permutation(n)).benes_plan() for _ in range(3)])
+    for path in ("wide", "global"):
+        assert torch.equal(_benes_on(path, "apply_benes", x, plan)[0], want_out)
+        out, count = _benes_on(path, "apply_benes_decrypt", x, plan, key)
+        assert torch.equal(out, want_out) and int(count) == int(want_count) >= 33
+        assert torch.equal(_benes_on(path, "apply_benes_batch", xb, stacked)[0],
+                           benes_kernels.apply_benes_batch_plain(xb, stacked))
+
+
+def test_benes_wide_path_through_the_api(dev):
+    """Context(20000, 16): a ciphertext permuted on the card, decrypted under
+    the permuted key (1), and permuted back; a fleet re-keyed per element."""
+    ctx = Context(20000, 16)
+    sk = _key(ctx, 5, dev)
+    p, q, _ = _wide_perms(20000)
+    c = Ciphertext(sk.encrypt_batch([1, 0, 0, 1, 1], 9), ctx)
+    rot = c.apply_permutation(p)
+    assert int(sk.apply_permutation(p).decrypt(rot)) == 1
+    _, parity = sk.permute_and_decrypt(c, p)
+    assert int(parity) == 1
+    assert torch.equal(rot.apply_permutation(p.inverse()).wt, c.wt)
+    fleet = CiphertextBatch.stack([c, Ciphertext(sk.encrypt_batch([0, 1, 1, 1, 0], 10), ctx)])
+    got = fleet.apply_permutations([p, q])
+    assert [int(sk.apply_permutation(x).decrypt(got[i])) for i, x in enumerate((p, q))] == [1, 1]
+
+
+# ---------------------------------------------------------------------------
+# The reference's golden vectors through K1, K3 and K8
+# ---------------------------------------------------------------------------
+
+GOLDEN = pathlib.Path(__file__).parent / "golden" / "golden_vectors.json"
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["n1247", "n95", "n4095"])
+def test_golden_vectors_through_the_kernels(dev, which):
+    """The golden add, mul (K1), decrypt (K3) and permutation (K8: register
+    path at n = 95 and 1247, shared path at 4095) vectors dumped from the C++
+    reference, on the card."""
+    sc = json.loads(GOLDEN.read_text())["scenarios"][which]
+    ctx = Context(sc["n"], sc["d"])
+
+    def ct(name):
+        return Ciphertext.from_u64(np.array([int(v) for v in sc[name]], dtype=np.uint64),
+                                   ctx, dev)
+
+    def u64(name):
+        return np.array([int(v) for v in sc[name]], dtype=np.uint64)
+
+    before = dict(kernels.LAUNCHES)
+    c1, c0 = ct("c1"), ct("c0")
+    added = c1 + c0
+    got = {"added": added, "multiplied": c1 * c0, "big": added * added}
+    got["bigger"] = got["big"] * added
+    got["biggest"] = got["bigger"] * added
+    for name, c in got.items():
+        np.testing.assert_array_equal(c.to_u64(), u64(name), err_msg=name)
+    sk = SecretKey(ctx, np.array(sc["key"], dtype=np.int32), dev)
+    for name, c in dict(got, c1=c1, c0=c0).items():
+        assert int(sk.decrypt(c)) == sc["dec"][name], name
+    p = Permutation(np.array(sc["perm"], dtype=np.int32))
+    pc1 = c1.apply_permutation(p)
+    np.testing.assert_array_equal(pc1.to_u64(), u64("permuted_c1"))
+    assert int(sk.apply_permutation(p).decrypt(pc1)) == sc["dec"]["permuted_c1"]
+    path = benes_kernels.benes_path(p.benes_plan().words_pad)
+    assert path == ("shared" if sc["n"] == 4095 else "register")
+    for name in ("mul_chunks", "decrypt_parity", "apply_benes"):
+        assert kernels.LAUNCHES[name] > before[name], name
+
+
+# ---------------------------------------------------------------------------
+# The encrypt engines' global column base
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("engine", ["counter", "philox"])
+@pytest.mark.parametrize("col0,batch", [(1, 5), (255, 257), (4096, 4099)])
+def test_encrypt_col0_is_a_slice_of_the_col0_zero_launch(dev, engine, col0, batch):
+    sk = _key(CTX, 3, dev)
+    fn = {"counter": encrypt_kernels.encrypt_bits_counter,
+          "philox": encrypt_kernels.encrypt_bits_philox}[engine]
+    plain = {"counter": encrypt_kernels.encrypt_bits_counter_plain,
+             "philox": encrypt_kernels.encrypt_bits_philox_plain}[engine]
+    bits = torch.from_numpy(np.random.default_rng(col0).integers(0, 2, col0 + batch)
+                            .astype(np.int32)).to(dev)
+    whole = fn(99, bits, *sk.encrypt_operands)
+    got = fn(99, bits[col0:], *sk.encrypt_operands, col0=col0)
+    assert torch.equal(got, whole[:, col0:])
+    assert torch.equal(got, plain(99, bits[col0:], *sk.encrypt_operands, col0=col0))
+
+
+# ---------------------------------------------------------------------------
+# The multi-device layer at world size 1, over NCCL
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_world(dev, tmp_path):
+    import torch.distributed as dist
+
+    from csgn_tpu_torch import parallel
+
+    parallel.initialize(f"file://{tmp_path / 'store'}", 1, 0)
+    assert dist.get_backend() == "nccl"
+    try:
+        yield parallel
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_ops_at_world_size_one_equal_the_unsharded_calls(dev, nccl_world, tmp_path):
+    from csgn_tpu_torch import io as cio
+    from csgn_tpu_torch.parallel import dryrun
+    from csgn_tpu_torch.pipeline import mul_chain_decrypt, mul_chain_sharded_decrypt
+
+    par = nccl_world
+    mesh = par.chunk_mesh()
+    assert mesh.device == torch.device("cuda", torch.cuda.current_device())
+    sk = _key(CTX, 11, dev)
+    m = sk.mask_words
+    a = Ciphertext(sk.encrypt_batch(np.arange(1000) % 2 == 0, 1), CTX)
+    b = Ciphertext(sk.encrypt_batch(np.arange(37) % 3 == 0, 2), CTX)
+    c = Ciphertext(sk.encrypt_batch([1, 0, 1], 3), CTX)
+    prod = a * b
+    assert torch.equal(par.sharded_mul_allgather(a.wt, b.wt, mesh), prod.wt)
+    assert torch.equal(par.sharded_mul_ring(a.wt, b.wt, mesh), prod.wt)
+    assert torch.equal(par.sharded_mul_broadcast(a.wt, b.wt, mesh), prod.wt)
+    words, parity = par.sharded_mul_decrypt(a.wt, b.wt, m, mesh)
+    _, want = sk.mul_and_decrypt(a, b)
+    assert torch.equal(words, prod.wt) and int(parity) == int(want)
+    assert int(par.sharded_decrypt_parity(prod.wt, m, mesh)) == int(sk.decrypt(prod))
+    p = Permutation.random(CTX, torch.Generator().manual_seed(3))
+    assert torch.equal(par.sharded_permute(prod.wt, p.benes_plan(), mesh),
+                       prod.apply_permutation(p).wt)
+    bits = torch.from_numpy((np.arange(300) % 5 == 0).astype(np.int32)).to(dev)
+    enc = par.sharded_encrypt_bits(4, bits, *sk.encrypt_operands, CTX.n, CTX.d, mesh)
+    assert torch.equal(enc, sk.encrypt_batch(bits, 4))
+    chain, cp = mul_chain_sharded_decrypt([a, b, c], sk, mesh)
+    want_chain, want_p = mul_chain_decrypt([a, b, c], sk)
+    assert torch.equal(chain.wt, want_chain.wt) and int(cp) == int(want_p)
+    mesh2 = par.batch_chunk_mesh(1, 1)
+    fleet = torch.stack([a.wt, a.wt])
+    blk = par.shard_batch(fleet, mesh2)
+    pb2 = par.sharded_mul_batch(blk, blk, mesh2)
+    assert torch.equal(pb2, kernels.mul_chunks(fleet, fleet))
+    assert torch.equal(par.sharded_decrypt_batch(pb2, m, mesh2),
+                       sk.decrypt_batch(pb2))
+    par_dir = tmp_path / "ckpt"
+    cio.save_state_sharded(par_dir, {"prod": prod, "sk": sk}, mesh)
+    back = cio.load_state_sharded(par_dir, mesh=mesh)
+    assert torch.equal(back["prod"].wt, prod.wt) and back["prod"].wt.is_cuda
+    assert dryrun.run(workdir=tmp_path)["parity"] == 1

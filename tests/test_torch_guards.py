@@ -38,7 +38,10 @@ def test_import_pulls_in_no_jax():
         "csgn_tpu_torch.models.circuits, csgn_tpu_torch.models.linear, "
         "csgn_tpu_torch.models.lookup, csgn_tpu_torch.cli, csgn_tpu_torch.config, "
         "csgn_tpu_torch.io, csgn_tpu_torch.utils.timing, csgn_tpu_torch.utils.checks, "
-        "csgn_tpu_torch.tools.enc_stats; "
+        "csgn_tpu_torch.tools.enc_stats, csgn_tpu_torch.rng, csgn_tpu_torch.refcompat, "
+        "csgn_tpu_torch.parallel, csgn_tpu_torch.parallel.mesh, "
+        "csgn_tpu_torch.parallel.multihost, csgn_tpu_torch.parallel.ops, "
+        "csgn_tpu_torch.parallel.batch_ops, csgn_tpu_torch.parallel.dryrun; "
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'csgn_tpu.')) "
         "or m == 'csgn_tpu'); print(bad); sys.exit(1 if bad else 0)"
     )
@@ -223,3 +226,35 @@ def test_cuda_tests_skip_with_reason_without_a_gpu():
     reasons = re.findall(r"SKIPPED \[(\d+)\] \S+: (.*)", out)
     assert reasons and {r for _, r in reasons} == {"needs an NVIDIA GPU"}, out
     assert not re.search(r"\d+ (passed|failed|error)", out), out
+
+
+def test_order_tag_api():
+    """The JAX package's order-tag names exist: every product of the port is
+    canonical with no pad chunks, and `set_eager_order` keeps the flag and
+    returns the previous setting, changing no result."""
+    import csgn_tpu_torch
+    from csgn_tpu_torch import CiphertextBatch, set_eager_order
+
+    assert csgn_tpu_torch.set_eager_order is set_eager_order
+    sk = SecretKey(CTX, [1, 5, 9, 70], device="cpu")
+    a = Ciphertext(sk.encrypt_batch([1, 0, 1], 3), CTX)
+    b = Ciphertext(sk.encrypt_batch([1, 1, 0, 1, 1], 4), CTX)
+    lazy = a * b
+    assert lazy.is_canonical and lazy.physical_chunks == lazy.chunks == 15
+    batch = CiphertextBatch.stack([a, a]) * CiphertextBatch.stack([b, b])
+    assert batch.is_canonical and batch.physical_chunks == batch.chunks == 15
+    prev = set_eager_order(True)
+    try:
+        assert set_eager_order(True) is True
+        eager = a * b
+        assert eager.is_canonical and torch.equal(eager.wt, lazy.wt)
+    finally:
+        assert set_eager_order(prev) is True
+    assert set_eager_order(prev) is prev
+
+
+@pytest.mark.parametrize("wp", [1024, 4096])
+def test_benes_path_takes_any_width(wp):
+    """Networks past 512 words (n > 16384) route to the wide path; none is
+    refused for its size."""
+    assert benes_kernels.benes_path(wp) == "wide"
