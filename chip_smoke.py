@@ -18,11 +18,12 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      spill there fails the run) and of any other kernel that spills;
   3. each kernel against its plain torch version on the card, bit-exact, at
      small and ragged shapes and at the main path's full size: K1-K4, the
-     Beneš kernels K8/K9/K12 at n in {20, 100, 1247, 4095} and up to 2^20
-     chunks (the register path up to n = 2048, the shared path at 4095, and
-     the shared path forced at n = 1247 against the register path), the
-     wide path at n in {20000, 70000} over 1,000 and 2^14 chunks (its
-     global-scratch form forced at 20000),
+     Beneš kernels K8/K9/K12 at n in {20, 100, 1247, 2049, 4095, 8191,
+     16383} and up to 2^20 chunks (the register path up to n = 2048, the
+     lane-group path above, and the wide kernel forced at n = 1247 against
+     the register path), at n in {20000, 40000} on the lane-group path and
+     the wide kernel forced, and at n = 70000 on the wide kernel, over 1,000
+     and 2^14 chunks (its global-scratch form forced at 20000),
      K1-K3 on batched [B, W, C] operands, the Philox encrypt K7 and its
      stream dump K13 at batches {1, 255, 257, 2^22}, W in {3, 40, 128} and
      d in {4, 16, 32}, and the write anchor K5 against torch.full;
@@ -61,8 +62,9 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      `sharded_permute` of 2^20 chunks, `mul_chain_sharded_decrypt` on 4099 x
      37 x 111, a checkpoint written from the ranks and resumed onto the mesh,
      `parallel.dryrun.run()`, the 2-D ops on a (1, 1) mesh, and one K8 / K9
-     / K12 launch at n = 20000 on the Beneš kernel's wide path through the
-     public API, against the plain versions; every kernel of this path must
+     / K12 launch at n = 20000 on the Beneš kernel's lane-group path and a
+     K8 at n = 70000 on its wide kernel through the public API, against the
+     plain versions; every kernel of this path must
      be launched during it; then `sharded_mul_decrypt` in turns with
      `mul_and_decrypt` (the layer's cost with no peer), and the process
      group is destroyed;
@@ -70,9 +72,13 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      (CUDA events, warm-up, median of distinct inputs; nothing is asserted);
      the multiply's modes also against the aligned mode and today's
      4-byte-store walk, and a sweep of b's size for the streaming threshold;
-     K7 against K4, the Beneš kernel K8 in turns with its shared path forced
-     at n = 1247, its wide path at n = 20000 over 2^14 chunks in turns with
-     the wide path's global-scratch form, and the write anchor K5 in turns with `Tensor.fill_`, then
+     K7 against K4, the Beneš kernel K8 in turns with its wide kernel forced
+     at n = 1247; the lane-group path's K8 in turns with the wide kernel
+     forced at n = 4095 over 2^20 chunks and at n = 20000 and 40000 over
+     2^14 chunks, its K12 and K9; the wide kernel
+     at n = 70000 over 2^14 chunks in turns with its global-scratch form; the
+     batched count form of the multiply's tiled mode at 2 x (16 x 2^19); and
+     the write anchor K5 in turns with `Tensor.fill_`, then
      with K1 and with K2 (median per-pair ratio anchor ms / kernel ms, the JAX
      bench's value_vs_anchor).  Every row gets its bound (the larger of its bytes
      over 3.35 TB/s and its integer operations over 132 SMs x 64 INT32 lanes
@@ -138,10 +144,11 @@ STATS_CTX, STATS_BATCH, STATS_SEED = Context(4095, 32), 1 << 20, 424242
 WORKDIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
 SHARD_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_sharded"
 
-# The Beneš kernel's wide path (WP > 512): phase 3 at these n, phase 4e and
-# phase 5 at WIDE_N over WIDE_CHUNKS chunks (the PERF.md row's size).
-WIDE_NS = (20000, 70000)                  # WP = 1024 and 4096
-WIDE_N, WIDE_CHUNKS = 20000, 1 << 14
+# The Beneš kernel past 16384 bits: phase 3 at these n (WP = 1024, 2048 on
+# the lane-group path, 4096 on the wide kernel), phase 4e at LANES_N and
+# WIDE_N, phase 5 at each over WIDE_CHUNKS chunks (the PERF.md rows' size).
+WIDE_NS = (20000, 40000, 70000)
+LANES_N, WIDE_N, WIDE_CHUNKS = 20000, 70000, 1 << 14
 SHARD_RING_T = (4099, 37)                 # t1 * t2 odd: the multiply's unaligned mode
 
 # Bounds: HBM at the H100 SXM's published
@@ -179,6 +186,8 @@ KERNELS = [
      "csgn_tpu/ops/permute_benes.py:399"),
     ("K12", "apply_benes_decrypt", "csgn_tpu_torch/csrc/benes.cu",
      "csgn_tpu/ops/permute_benes.py:307"),
+    ("K8l", "benes_lanes", "csgn_tpu_torch/csrc/benes_lanes.cu",
+     "csgn_tpu/ops/permute_benes.py:533"),
     ("K8w", "benes_wide", "csgn_tpu_torch/csrc/benes.cu", "csgn_tpu/ops/permute_benes.py:533"),
     ("K6a", "mul_chunks_tiled", MUL_CU, "csgn_tpu/ops/kernels.py:384"),
     ("K6b", "mul_decrypt_tiled", MUL_CU, "csgn_tpu/ops/kernels.py:227"),
@@ -206,7 +215,7 @@ ENTRY_PATH = ("encrypt_bits_counter", "encrypt_bits_philox", "philox_streams", "
               "chunk_matches", "apply_benes")
 SHARDED_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "encrypt_bits_counter",
                 "apply_benes", "apply_benes_batch", "apply_benes_decrypt",
-                "mul_chunks_unaligned", "mul_decrypt_unaligned", "benes_wide",
+                "mul_chunks_unaligned", "mul_decrypt_unaligned", "benes_lanes", "benes_wide",
                 "mul_chunks_batched", "decrypt_parity_batched")
 
 
@@ -394,15 +403,27 @@ def check_modes(ctx, sk, gen, dev, errs: dict) -> None:
         del a, b
 
 
-BENES_NS = (20, 100, 1247, 4095)
+BENES_NS = (20, 100, 1247, 2049, 4095, 8191, 16383)
 BENES_CHUNKS = (1, 129, 1025, PERM_CHUNKS)
+FLEET_NS = (20, 100, 1247, 4095)      # K9 also over FLEET plans (routing is slow past them)
+# The path forced where phase 3 and phase 5 hold the register and lane-group
+# paths against another design (at n = 1247 and n = 4095): the wide kernel,
+# which takes any width.
+OLD_PATH = "wide"
+
+
+def _benes_errs(errs: dict, path: str, e: int) -> None:
+    """Record a Beneš error under its wrapper rows' key and its path's row."""
+    key = {"lanes": "benes_lanes", "wide": "benes_wide", "global": "benes_wide"}.get(path)
+    if key:
+        errs[key] = max(errs[key], e)
 
 
 def check_benes(gen, pgen, dev, errs: dict) -> None:
     """K8 / K12 at every (n, C), K9 at every (n, k, C), against their plain
-    versions; K12 with matches forced into every 5th column.  n = 4095 takes
-    the shared path, the others the register path; at n = 1247 and 2^20
-    chunks the shared path is also forced and held to the register path."""
+    versions; K12 with matches forced into every 5th column.  n > 2048 takes
+    the lane-group path, the others the register path; at n = 1247 and 2^20
+    chunks OLD_PATH is also forced and held to the register path."""
     saw_parity_one = False
     for n in BENES_NS:
         ctx = Context(n, min(16, n // 2))
@@ -410,7 +431,7 @@ def check_benes(gen, pgen, dev, errs: dict) -> None:
         p = Permutation.random(n, pgen)
         plan = p.benes_plan()
         path = benes_kernels.benes_path(plan.words_pad)
-        require(path == ("shared" if n > 2048 else "register"), f"n={n} routed to {path}")
+        require(path == ("lanes" if n > 2048 else "register"), f"n={n} routed to {path}")
         key = sk.apply_permutation(p).mask_words   # the OUTPUT's key
         # The key's mask permuted back through p^-1 matches `key` after p.
         pre = core.permute_chunks(key[:, None], torch.tensor(p.inverse().perm), n)
@@ -427,43 +448,48 @@ def check_benes(gen, pgen, dev, errs: dict) -> None:
                       abs(int(parity) - (int(want_count) & 1)))
             errs["apply_benes"] = max(errs["apply_benes"], e8)
             errs["apply_benes_decrypt"] = max(errs["apply_benes_decrypt"], e12)
+            _benes_errs(errs, path, max(e8, e12))
             require(e8 == 0 and e12 == 0, f"K8/K12 disagree with plain at n={n} C={chunks}")
             require(int(count) >= len(range(0, chunks, 5)), f"K12 missed forced matches "
                     f"at n={n} C={chunks}")
             saw_parity_one |= int(parity) == 1
             extra = ""
             if n == 1247 and chunks == PERM_CHUNKS:
-                old8, _ = benes_kernels._benes_cuda("apply_benes", x, plan, 0, path="shared")
+                old8, _ = benes_kernels._benes_cuda("apply_benes", x, plan, 0, path=OLD_PATH)
                 old12, old_count = benes_kernels._benes_cuda("apply_benes_decrypt", x, plan, 0,
-                                                             key, path="shared")
+                                                             key, path=OLD_PATH)
                 require(torch.equal(old8, out) and torch.equal(old12, out)
                         and int(old_count) == int(count),
-                        "the forced shared path != the register path at n=1247")
-                extra = "; forced shared path equal"
+                        f"the forced {OLD_PATH} path != the register path at n=1247")
+                extra = f"; forced {OLD_PATH} path equal"
                 del old8, old12
             print(f"[check] apply_benes + apply_benes_decrypt n={n} ({path} path) C={chunks}: "
                   f"bit-equal, count {int(count)} parity {int(parity)}{extra}")
             del x, out, want_out
-        for k in (1, 3, FLEET):
+        for k in (1, 3, FLEET) if n in FLEET_NS else (1, 3):
             perms = [Permutation.random(n, pgen) for _ in range(k)]
             stacked = pb.stack_plans([q.benes_plan() for q in perms])
-            for chunks in (1, 129, 1025) + ((1 << 14,) if k == FLEET else ()):
+            sizes = (1, 129, 1025) + ((1 << 14,) if k == FLEET else ())
+            for chunks in sizes:
                 x = canon_words(ctx, (k, ctx.words32, chunks), gen, dev)
                 e9 = max_abs_err(benes_kernels.apply_benes_batch(x, stacked),
                                  benes_kernels.apply_benes_batch_plain(x, stacked))
                 errs["apply_benes_batch"] = max(errs["apply_benes_batch"], e9)
+                _benes_errs(errs, path, e9)
                 require(e9 == 0, f"K9 disagrees with plain at n={n} k={k} C={chunks}")
                 del x
             print(f"[check] apply_benes_batch n={n} ({path} path) k={k}: bit-equal at C in "
-                  f"{(1, 129, 1025) + ((1 << 14,) if k == FLEET else ())}")
+                  f"{sizes}")
     require(saw_parity_one, "no K12 case had parity 1")
 
 
 def check_benes_wide(gen, pgen, dev, errs: dict) -> dict:
-    """K8 / K12 / K9 on the wide path (n > 16384) against their plain
-    versions at WIDE_NS, over 1,000 (not a multiple of the tile's 32
-    columns) and WIDE_CHUNKS chunks, and the global-scratch form forced at
-    WIDE_N.  Returns the routed permutations by n, for phases 4e and 5."""
+    """K8 / K12 / K9 past 16384 bits against their plain versions at
+    WIDE_NS, over 1,000 (not a multiple of a block's chunks) and WIDE_CHUNKS
+    chunks: routed (the lane-group path up to n = 65536, the wide kernel
+    above), the wide kernel also forced at the lane-group widths, and its
+    global-scratch form forced at LANES_N.  Returns the routed permutations
+    by n, for phases 4e and 5."""
     perms = {}
     for n in WIDE_NS:
         ctx = Context(n, 16)
@@ -473,7 +499,10 @@ def check_benes_wide(gen, pgen, dev, errs: dict) -> dict:
         plan, stacked = p.benes_plan(), pb.stack_plans([q.benes_plan(), r.benes_plan()])
         route_s = time.perf_counter() - t0
         perms[n] = (p, q, r)
-        require(benes_kernels.benes_path(plan.words_pad) == "wide", f"n={n} not on the wide path")
+        routed = benes_kernels.benes_path(plan.words_pad)
+        require(routed == ("lanes" if n <= 65536 else "wide"), f"n={n} routed to {routed}")
+        forms = [routed] + (["wide"] if routed == "lanes" else []) + (
+            ["global"] if n == LANES_N else [])
         key = sk.apply_permutation(p).mask_words
         pre = core.permute_chunks(key[:, None], torch.tensor(p.inverse().perm), n)
         for chunks in (1000, WIDE_CHUNKS):
@@ -481,29 +510,24 @@ def check_benes_wide(gen, pgen, dev, errs: dict) -> dict:
             x[:, 0:chunks:5] |= pre
             want_out, want_count = benes_kernels.apply_benes_decrypt_plain(x, plan, key,
                                                                            return_count=True)
-            forms = [("wide", benes_kernels.apply_benes(x, plan),
-                      benes_kernels.apply_benes_decrypt(x, plan, key, return_count=True))]
-            if n == WIDE_N:
-                forms.append(("global", benes_kernels._benes_cuda("apply_benes", x, plan, 0,
-                                                                  path="global")[0],
-                              benes_kernels._benes_cuda("apply_benes_decrypt", x, plan, 0, key,
-                                                        path="global")))
-            for form, out8, (out12, count) in forms:
-                e = max(max_abs_err(out8, want_out), max_abs_err(out12, want_out),
-                        abs(int(count) - int(want_count)))
-                errs["benes_wide"] = max(errs["benes_wide"], e)
-                require(e == 0, f"wide path ({form}) disagrees with plain at n={n} C={chunks}")
-            require(int(want_count) >= len(range(0, chunks, 5)), "K12 missed forced matches")
             xb = canon_words(ctx, (2, ctx.words32, chunks), gen, dev)
-            e9 = max_abs_err(benes_kernels.apply_benes_batch(xb, stacked),
-                             benes_kernels.apply_benes_batch_plain(xb, stacked))
-            errs["benes_wide"] = max(errs["benes_wide"], e9)
-            require(e9 == 0, f"wide-path K9 disagrees with plain at n={n} C={chunks}")
-            del x, xb, want_out
-        print(f"[check] wide path n={n} (WP={plan.words_pad}, {len(plan.deltas)} stages, "
-              f"routed in {route_s:.2f} s): K8, K12 (count {int(want_count)}) and K9 (2 plans) "
-              f"bit-equal at C in (1000, {WIDE_CHUNKS})"
-              + ("; global-scratch form forced: equal" if n == WIDE_N else ""))
+            want9 = benes_kernels.apply_benes_batch_plain(xb, stacked)
+            for form in forms:
+                out8 = benes_kernels._benes_cuda("apply_benes", x, plan, 0, path=form)[0]
+                out12, count = benes_kernels._benes_cuda("apply_benes_decrypt", x, plan, 0, key,
+                                                         path=form)
+                out9 = benes_kernels._benes_cuda(
+                    "apply_benes_batch", xb, stacked, len(plan.deltas) * plan.words_pad,
+                    path=form)[0]
+                e = max(max_abs_err(out8, want_out), max_abs_err(out12, want_out),
+                        abs(int(count) - int(want_count)), max_abs_err(out9, want9))
+                _benes_errs(errs, form, e)
+                require(e == 0, f"{form} path disagrees with plain at n={n} C={chunks}")
+            require(int(want_count) >= len(range(0, chunks, 5)), "K12 missed forced matches")
+            del x, xb, want_out, want9
+        print(f"[check] n={n} (WP={plan.words_pad}, {len(plan.deltas)} stages, routed in "
+              f"{route_s:.2f} s): K8, K12 (count {int(want_count)}) and K9 (2 plans) bit-equal "
+              f"at C in (1000, {WIDE_CHUNKS}) on the {', '.join(forms)} paths")
     return perms
 
 
@@ -996,7 +1020,8 @@ def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str) -> tuple[dict, 
     a sharded permutation of 2^20 chunks, the sharded chain fused with the
     decrypt, a checkpoint written from the ranks and resumed onto the mesh,
     the dry run, the 2-D ops on a (1, 1) mesh, and one K8 / K9 / K12 launch
-    at n = WIDE_N on the Beneš kernel's wide path through the public API.
+    at n = LANES_N on the Beneš kernel's lane-group path and a K8 at n =
+    WIDE_N on its wide kernel through the public API.
     The process group is destroyed before returning.  Returns (launches,
     timings)."""
     bits1, bits2 = odd_bits(rng, MAIN_T), odd_bits(rng, MAIN_T)
@@ -1004,9 +1029,10 @@ def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str) -> tuple[dict, 
     chain_bits = [odd_bits(rng, t) for t in CHAIN_T]
     fleet_bits = rng.integers(0, 2, (FLEET, FLEET_T)).astype(np.int32)
     fleet_bits[0, 0] ^= int(fleet_bits[0].sum() % 2 == 0)        # element 0 decrypts to 1
-    wctx = Context(WIDE_N, 16)
-    wide_bits = odd_bits(rng, WIDE_CHUNKS)
-    wp, wq, wr = wide_perms[WIDE_N]
+    wctx, bctx = Context(LANES_N, 16), Context(WIDE_N, 16)
+    wide_bits, big_bits = odd_bits(rng, WIDE_CHUNKS), odd_bits(rng, 1000)
+    wp, wq, wr = wide_perms[LANES_N]
+    bp = wide_perms[WIDE_N][0]
     perm = Permutation.random(ctx, pgen)
     perm.benes_plan()
     shutil.rmtree(SHARD_DIR, ignore_errors=True)
@@ -1099,8 +1125,9 @@ def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str) -> tuple[dict, 
         require(torch.equal(grown, kernels.mul_chunks_plain(fleet, fleet)), "2-D product")
         del fleet, blk, grown, rot_b
 
-        # The Beneš kernel's wide path at n = WIDE_N, through the public API.
-        wsk = SecretKey(wctx, torch.randperm(WIDE_N, generator=pgen)[:16].numpy())
+        # The Beneš kernel's lane-group path at n = LANES_N and its wide
+        # kernel at n = WIDE_N, through the public API.
+        wsk = SecretKey(wctx, torch.randperm(LANES_N, generator=pgen)[:16].numpy())
         wct = Ciphertext(wsk.encrypt_batch(wide_bits, SEED + 840), wctx)
         wrot = wct.apply_permutation(wp)
         d_wide = int(wsk.apply_permutation(wp).decrypt(wrot))
@@ -1108,6 +1135,10 @@ def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str) -> tuple[dict, 
         wrot2 = wfleet.apply_permutations([wq, wr])
         wfused, wcount = benes_kernels.apply_benes_decrypt(
             wct.wt, wp.benes_plan(), wsk.apply_permutation(wp).mask_words, return_count=True)
+        bsk = SecretKey(bctx, torch.randperm(WIDE_N, generator=pgen)[:16].numpy())
+        bct = Ciphertext(bsk.encrypt_batch(big_bits, SEED + 841), bctx)
+        brot = bct.apply_permutation(bp)
+        d_big = int(bsk.apply_permutation(bp).decrypt(brot))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
@@ -1115,11 +1146,14 @@ def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str) -> tuple[dict, 
         e = max(max_abs_err(wrot.wt, benes_kernels.apply_benes_plain(wct.wt, wp.benes_plan())),
                 max_abs_err(wrot2.wt, benes_kernels.apply_benes_batch_plain(
                     wfleet.wt, pb.stack_plans([wq.benes_plan(), wr.benes_plan()]))),
-                max_abs_err(wfused, wrot.wt))
+                max_abs_err(wfused, wrot.wt),
+                max_abs_err(brot.wt, benes_kernels.apply_benes_plain(bct.wt, bp.benes_plan())))
         _, want_count = benes_kernels.apply_benes_decrypt_plain(
             wct.wt, wp.benes_plan(), wsk.apply_permutation(wp).mask_words, return_count=True)
-        require(e == 0 and int(wcount) == int(want_count), "wide path != plain at n=20000")
-        require(d_wide == 1 and int(wcount) & 1 == 1, f"wide rotation decrypts to {d_wide}")
+        require(e == 0 and int(wcount) == int(want_count),
+                f"lane-group path at n={LANES_N} or wide kernel at n={WIDE_N} != plain")
+        require(d_wide == d_big == 1 and int(wcount) & 1 == 1,
+                f"rotations decrypt to {d_wide} (n={LANES_N}) and {d_big} (n={WIDE_N})")
         idle = [k for k in SHARDED_PATH if launches[k] == 0]
         require(not idle, f"sharded path never launched: {idle}")
 
@@ -1141,8 +1175,8 @@ def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str) -> tuple[dict, 
           f"{d_rot} under the permuted key; mul_chain_sharded_decrypt "
           f"{'x'.join(map(str, CHAIN_T))} parity {int(p_chain)}; checkpoint resumed onto the "
           f"mesh; dryrun {json.dumps(summary)}; (1, 1) mesh fleet {FLEET} x {FLEET_T}^2 decrypts "
-          f"= bits; n={WIDE_N} wide path K8/K9/K12 bit-equal to plain, rotated decrypt "
-          f"{d_wide}; {seconds:.3f} s host wall")
+          f"= bits; n={LANES_N} lane-group path K8/K9/K12 and n={WIDE_N} wide kernel K8 "
+          f"bit-equal to plain, rotated decrypts {d_wide}, {d_big}; {seconds:.3f} s host wall")
     print(f"[sharded] sharded_mul_decrypt {sh_ms:.4f} ms against mul_and_decrypt {md_ms:.4f} ms "
           f"in turns ({MAIN_T}x{MAIN_T}, overhead {sh_ms - md_ms:+.4f} ms); {card}")
     print(f"[sharded] host wall per step (s): {json.dumps(steps)}")
@@ -1419,8 +1453,7 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked, bound) -> dic
     # Beneš kernels at n = 1247: K8 / K12 over 2^20 chunks, K9 over 64 x 2^14.
     # Bytes are the payload read plus written (K12: read only is the floor);
     # operations are the timed plans' network_ops per chunk (K12: plus one per
-    # nonzero key word).  K8 also runs in turns with its shared path forced,
-    # the design it replaced at n = 1247.
+    # nonzero key word).  K8 also runs in turns with OLD_PATH forced.
     plan = p.benes_plan()
     key = sk.apply_permutation(p).mask_words
     xs = [(canon_words(ctx, (w, PERM_CHUNKS), gen, dev),) for _ in range(REPS)]
@@ -1430,13 +1463,14 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked, bound) -> dic
     path = benes_kernels.benes_path(plan.words_pad)
     ms, pms = time_pair(lambda x: benes_kernels.apply_benes(x, plan),
                         lambda x: benes_kernels.apply_benes_plain(x, plan), xs)
-    reg_ms, shared_ms = time_pair(
+    reg_ms, old_ms = time_pair(
         lambda x: benes_kernels.apply_benes(x, plan),
-        lambda x: benes_kernels._benes_cuda("apply_benes", x, plan, 0, path="shared")[0], xs)
+        lambda x: benes_kernels._benes_cuda("apply_benes", x, plan, 0, path=OLD_PATH)[0], xs)
     report("apply_benes", f"{w}x{PERM_CHUNKS}", pbytes, ms, pms,
-           f", {PERM_CHUNKS / ms / 1e3:.1f} M chunks/s, {path} path; in turns with the shared "
-           f"path: {reg_ms:.4f} ms against {shared_ms:.4f} ms", bnd=bound(pbytes, pops))
-    out["apply_benes"].update(path=path, against_shared_ms=reg_ms, shared_path_ms=shared_ms)
+           f", {PERM_CHUNKS / ms / 1e3:.1f} M chunks/s, {path} path; in turns with the "
+           f"{OLD_PATH} path: {reg_ms:.4f} ms against {old_ms:.4f} ms", bnd=bound(pbytes, pops))
+    out["apply_benes"].update(path=path, against_old_ms=reg_ms, old_path=OLD_PATH,
+                              old_path_ms=old_ms)
     ms, pms = time_pair(lambda x: benes_kernels.apply_benes_decrypt(x, plan, key),
                         lambda x: benes_kernels.apply_benes_decrypt_plain(x, plan, key), xs)
     fused_ms, staged_ms = time_pair(
@@ -1458,40 +1492,75 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked, bound) -> dic
     return out
 
 
-def wide_timings(gen, pgen, dev, card: str, wide_perms, bound) -> dict:
-    """The Beneš kernel's wide path at n = WIDE_N over WIDE_CHUNKS chunks:
-    K8 against its plain version, in turns with its global-scratch form, and
-    K12 on the same inputs.  Bytes: the payload read and written; operations:
-    the plan's `network_ops` per chunk (K12: plus one per nonzero key word)."""
-    ctx = Context(WIDE_N, 16)
-    p = wide_perms[WIDE_N][0]
-    plan = p.benes_plan()
-    sk = SecretKey(ctx, torch.randperm(WIDE_N, generator=pgen)[:ctx.d].numpy(), device=dev)
-    key = sk.apply_permutation(p).mask_words
-    w = ctx.words32
-    xs = [(canon_words(ctx, (w, WIDE_CHUNKS), gen, dev),) for _ in range(REPS)]
-    nbytes = 2 * w * WIDE_CHUNKS * 4
-    ops = benes_kernels.network_ops(plan) * WIDE_CHUNKS
-    ms, pms = time_pair(lambda x: benes_kernels.apply_benes(x, plan),
-                        lambda x: benes_kernels.apply_benes_plain(x, plan), xs)
-    tile_ms, global_ms = time_pair(
-        lambda x: benes_kernels.apply_benes(x, plan),
-        lambda x: benes_kernels._benes_cuda("apply_benes", x, plan, 0, path="global")[0], xs)
-    k12_ms, k12_plain_ms = time_pair(
-        lambda x: benes_kernels.apply_benes_decrypt(x, plan, key),
-        lambda x: benes_kernels.apply_benes_decrypt_plain(x, plan, key), xs)
-    bnd = bound(nbytes, ops)
-    k12_bnd = bound(nbytes + 4 * w + 8, ops + int(torch.count_nonzero(key)) * WIDE_CHUNKS)
-    print(f"[time] apply_benes wide path n={WIDE_N} (WP={plan.words_pad}) {w}x{WIDE_CHUNKS}: "
-          f"kernel {ms:.4f} ms ({WIDE_CHUNKS / ms / 1e3:.2f} M chunks/s), plain {pms:.4f} ms; "
-          f"in turns with its global-scratch form: {tile_ms:.4f} ms against {global_ms:.4f} ms; "
-          f"K12 {k12_ms:.4f} ms (plain {k12_plain_ms:.4f}, bound {k12_bnd['bound_ms']:.4f}); "
-          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, {ops // WIDE_CHUNKS} ops a "
-          f"chunk); {card}")
-    return {"K8w": {"shape": f"{w}x{WIDE_CHUNKS} (n={WIDE_N})", "ms": ms, "plain_ms": pms,
-                    "against_global_ms": tile_ms, "global_form_ms": global_ms,
-                    "k12_ms": k12_ms, "k12_plain_ms": k12_plain_ms, "k12_bound_ms":
-                    k12_bnd["bound_ms"], **bnd, "library_ms": None}}
+def _forced(name, plan, path, key=None, stride=0):
+    """A Beneš wrapper's kernel launched on `path` (timing only)."""
+    return lambda x: benes_kernels._benes_cuda(name, x, plan, stride, key, path=path)[0]
+
+
+def lane_timings(gen, pgen, dev, card: str, wide_perms, bound) -> dict:
+    """The Beneš kernel past 2048 bits.  The lane-group path's K8 in turns
+    with the wide kernel forced (at n = 4095 over 2^20 chunks, at LANES_N
+    and n = 40000 over WIDE_CHUNKS chunks); its K12 and K9 (four plans over
+    a quarter of the chunks each);
+    the wide kernel at WIDE_N against its global-scratch form.  Bytes: the
+    payload read and written; operations: the plans' `network_ops` per chunk
+    (K12: plus one per nonzero key word)."""
+    out = {}
+    rows = []
+    for n, chunks, old in ((4095, PERM_CHUNKS, OLD_PATH), (LANES_N, WIDE_CHUNKS, "wide"),
+                           (40000, WIDE_CHUNKS, "wide"), (WIDE_N, WIDE_CHUNKS, "global")):
+        ctx = Context(n, 16)
+        p, q, r = wide_perms[n] if n in wide_perms else (
+            Permutation.random(n, pgen) for _ in range(3))
+        plan = p.benes_plan()
+        path = benes_kernels.benes_path(plan.words_pad)
+        sk = SecretKey(ctx, torch.randperm(n, generator=pgen)[:ctx.d].numpy(), device=dev)
+        key = sk.apply_permutation(p).mask_words
+        w = ctx.words32
+        xs = [(canon_words(ctx, (w, chunks), gen, dev),) for _ in range(REPS)]
+        nbytes = 2 * w * chunks * 4
+        ops = benes_kernels.network_ops(plan) * chunks
+        ms, pms = time_pair(lambda x: benes_kernels.apply_benes(x, plan),
+                            lambda x: benes_kernels.apply_benes_plain(x, plan), xs)
+        new_ms, old_ms = time_pair(lambda x: benes_kernels.apply_benes(x, plan),
+                                   _forced("apply_benes", plan, old), xs)
+        k12_ms, k12_plain_ms = time_pair(
+            lambda x: benes_kernels.apply_benes_decrypt(x, plan, key),
+            lambda x: benes_kernels.apply_benes_decrypt_plain(x, plan, key), xs)
+        row = {"n": n, "path": path, "shape": f"{w}x{chunks} (n={n})", "ms": ms,
+               "plain_ms": pms, "against_old_ms": new_ms, "old_path": old, "old_path_ms": old_ms,
+               "k12_ms": k12_ms, "k12_plain_ms": k12_plain_ms, **bound(nbytes, ops),
+               "library_ms": None}
+        k12_bnd = bound(nbytes + 4 * w + 8, ops + int(torch.count_nonzero(key)) * chunks)
+        row["k12_bound_ms"] = k12_bnd["bound_ms"]
+        del xs
+        if path == "lanes":
+            stacked = pb.stack_plans([p.benes_plan(), q.benes_plan(), r.benes_plan(),
+                                      p.inverse().benes_plan()])
+            kc = chunks // stacked.k
+            xb = [(canon_words(ctx, (stacked.k, w, kc), gen, dev),) for _ in range(REPS)]
+            row["k9_ms"], row["k9_plain_ms"] = time_pair(
+                lambda x: benes_kernels.apply_benes_batch(x, stacked),
+                lambda x: benes_kernels.apply_benes_batch_plain(x, stacked), xb)
+            row["k9_bound_ms"] = bound(nbytes, sum(benes_kernels.network_ops(stacked)) * kc)[
+                "bound_ms"]
+            row["k9_shape"] = f"{stacked.k}x{w}x{kc}"
+            del xb
+        out[f"{path}_{n}"] = row
+        rows.append(row)
+        print(f"[time] apply_benes n={n} (WP={plan.words_pad}, {path} path) {w}x{chunks}: "
+              f"kernel {ms:.4f} ms ({chunks / ms / 1e3:.2f} M chunks/s), plain {pms:.4f} ms; "
+              f"in turns with the {old} path: {new_ms:.4f} ms against {old_ms:.4f} ms"
+              + f"; K12 {k12_ms:.4f} ms (plain {k12_plain_ms:.4f}, bound "
+              f"{row['k12_bound_ms']:.4f})"
+              + (f"; K9 {row['k9_shape']} {row['k9_ms']:.4f} ms (plain "
+                 f"{row['k9_plain_ms']:.4f}, bound {row['k9_bound_ms']:.4f})"
+                 if path == "lanes" else "")
+              + f"; bound {row['bound_ms']:.4f} ms ({row['bound_by']}, {ops // chunks} ops a "
+              f"chunk), share {row['bound_ms'] / ms:.3f}; {card}")
+    out["K8l"] = out[f"lanes_{LANES_N}"]
+    out["K8w"] = out[f"wide_{WIDE_N}"]
+    return out
 
 
 def mode_timings(ctx, sk, gen, dev, card: str, bound) -> dict:
@@ -1558,6 +1627,29 @@ def mode_timings(ctx, sk, gen, dev, card: str, bound) -> dict:
         del ins, paired
     del aligned_in, half_in
 
+    # The batched count form of the tiled mode (K6b on [B, W, C]): the 2-D
+    # row's shape twice, b of each element past the streaming threshold.
+    def fresh_batched(seed):
+        def one(t, s):
+            bits = torch.randint(0, 2, (2 * t,), dtype=torch.int32, device=dev, generator=gen)
+            return sk.encrypt_batch(bits, s).reshape(w, 2, t).permute(1, 0, 2).contiguous()
+        return [(one(STREAM_T[0], seed + 2 * k), one(STREAM_T[1], seed + 2 * k + 1))
+                for k in range(REPS)]
+
+    ins = fresh_batched(SEED + 750)
+    require(kernels.mul_mode(w, *STREAM_T, True) == "tiled", "K6b batched shape not tiled")
+    before = kernels.LAUNCHES["mul_decrypt_tiled_batched"]
+    ms, pms = time_pair(mul(True), plain(True), ins)
+    launched = kernels.LAUNCHES["mul_decrypt_tiled_batched"] - before
+    bnd = bound(mul_bytes(w, *STREAM_T, 2) + 4 * w + 16)
+    out["K6b_batched"] = {"shape": f"2x({STREAM_T[0]}x{STREAM_T[1]})", "ms": ms, "plain_ms": pms,
+                          "timed_launches": launched, **bnd, "library_ms": None}
+    print(f"[time] K6b mul_decrypt tiled batched 2x({STREAM_T[0]}x{STREAM_T[1]}): kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms; bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), "
+          f"share {bnd['bound_ms'] / ms:.3f}; {launched} launches of the batched tiled count "
+          f"form timed; {card}")
+    del ins
+
     # Small t2 at ~2^24 chunks: t2 = 1 and 3, against the 4-byte walk.
     for t2 in (1, 3):
         t1 = ((1 << 24) - 1) // t2
@@ -1590,6 +1682,7 @@ def main() -> int:
                         help="also profile phases 4b and 4c (the key-rotation and the "
                              "circuit paths)")
     args = parser.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -1619,8 +1712,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     resources = _build.kernel_resources()
     watched = [r for r in resources if "benes_" in r["kernel"] or "fill_kernel" in r["kernel"]]
-    require(len(watched) == 23, f"ptxas reported {len(watched)} Beneš and fill kernels, "
-            "not 14 register + 2 shared + 6 wide + 1 fill")
+    require(len(watched) == 31, f"ptxas reported {len(watched)} Beneš and fill kernels, "
+            "not 14 register + 10 lane-group + 6 wide + 1 fill")
     for r in resources:  # every Beneš and fill kernel, and any other that spills
         spills = r["spill_stores"] or r["spill_loads"]
         if r in watched or spills:
@@ -1693,9 +1786,10 @@ def main() -> int:
     # Phase 5: timings.
     times = timings(ctx, sk, gen, dev, smi, p, stacked, bound)
     times.update(mode_timings(ctx, sk, gen, dev, smi, bound))
-    times.update(wide_timings(gen, pgen, dev, smi, wide_perms, bound))
+    times.update(lane_timings(gen, pgen, dev, smi, wide_perms, bound))
     torch.cuda.synchronize()
-    extra = ("unaligned_t2_1", "unaligned_t2_3", "threshold_sweep")
+    extra = ("unaligned_t2_1", "unaligned_t2_3", "threshold_sweep", "K6b_batched",
+             "lanes_4095", "lanes_40000")
     print(f"[time] mode timings {json.dumps({k: times[k] for k in extra})}")
 
     rows = []
@@ -1709,6 +1803,7 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": errs[name], **times[tid if tid in times else name],
         })
+    print(f"[time] whole script {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -73,8 +73,10 @@ LAUNCHES = {
     "apply_benes": 0,
     "apply_benes_batch": 0,
     "apply_benes_decrypt": 0,
-    # launches of the three Beneš wrappers on the wide path (WP > 512), also
-    # counted under the wrapper's own key
+    # launches of the three Beneš wrappers on the lane-group path (64 < WP <=
+    # 2048) and on the wide path (WP > 2048), also counted under the
+    # wrapper's own key
+    "benes_lanes": 0,
     "benes_wide": 0,
 }
 

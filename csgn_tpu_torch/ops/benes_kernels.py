@@ -15,14 +15,17 @@ and `apply_benes_decrypt_plain`.  Routing is by the tensors' device, as in
 launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES[<wrapper name>]``.
 
-csrc/benes.cu has three paths, chosen by the network's width WP = n_pad / 32
-(`benes_path`), all counted under the same ``LAUNCHES`` keys:
+csrc/benes.cu and csrc/benes_lanes.cu have three paths, chosen by the
+network's width WP = n_pad / 32 (`benes_path`), all counted under the same
+``LAUNCHES`` keys:
 
   * "register" for WP <= `REGISTER_WORDS_PAD` (64, n <= 2048): each thread
     keeps its chunk column in registers, the rows unrolled at compile time
     for each WP in 1, 2, 4, ..., 64;
-  * "shared" up to `SHARED_WORDS_PAD` (512, n <= 16384): the column lives in
-    shared memory, the plan's masks staged beside it;
+  * "lanes" up to `LANES_WORDS_PAD` (2048, n <= 65536): a group of WP /
+    `LANE_WORDS` lanes of a warp keeps the column in registers,
+    `LANE_WORDS` rows a lane, the plan's masks in the layout of
+    `lane_masks`; its launches also count under ``LAUNCHES["benes_lanes"]``;
   * "wide" above, at any n: a block's threads split each stage's rows over
     a tile of up to 32 chunk columns (four columns a thread), the masks read
     from global memory; the tile is in shared memory while one column fits
@@ -55,10 +58,12 @@ __all__ = [
     "apply_benes_decrypt",
     "apply_benes_decrypt_plain",
     "benes_path",
+    "lane_masks",
     "network_deltas",
     "network_ops",
+    "LANE_WORDS",
+    "LANES_WORDS_PAD",
     "REGISTER_WORDS_PAD",
-    "SHARED_WORDS_PAD",
     "WIDE_TILE_WORDS_PAD",
 ]
 
@@ -67,27 +72,48 @@ apply_benes_batch_plain = pb.apply_benes_batch
 apply_benes_decrypt_plain = pb.apply_benes_decrypt_plain
 
 # The register path holds a chunk column of WP words in registers (64 of a
-# thread's 255 at WP = 64, with no spills); the shared path's block holds one
-# column per thread (WP words) plus the plan's masks (S x WP words) in shared
-# memory, with at least 32 columns per block, up to SHARED_WORDS_PAD (n <=
-# 16384); the wide path takes every wider network.  Its tile holds at least
-# one column of WP words in the 227 KB of shared memory a block may use, up
-# to WIDE_TILE_WORDS_PAD; past it each block's tile of _WIDE_GLOBAL_CHUNKS
-# columns lives in a global scratch.
+# thread's 255 at WP = 64, with no spills); the lane-group path splits it
+# over WP / LANE_WORDS lanes (2 to 32) of LANE_WORDS words each, up to
+# LANES_WORDS_PAD (n <= 65536); the wide path takes every wider network.
+# Its tile holds at least one column of WP words in the 227 KB of shared
+# memory a block may use, up to WIDE_TILE_WORDS_PAD; past it each block's
+# tile of _WIDE_GLOBAL_CHUNKS columns lives in a global scratch.  LANE_WORDS
+# must equal csrc/benes_lanes.cu's kLaneWords.
 REGISTER_WORDS_PAD = 64
-SHARED_WORDS_PAD = 512
+LANE_WORDS = 64
+LANES_WORDS_PAD = 2048
 WIDE_TILE_WORDS_PAD = 32768
 _WIDE_GLOBAL_CHUNKS = 32
-_PATH_CODES = {"register": 0, "shared": 1, "wide": 2, "global": 3}
+_PATH_CODES = {"register": 0, "lanes": 1, "wide": 2, "global": 3}
+_PATH_LAUNCHES = {"lanes": "benes_lanes", "wide": "benes_wide", "global": "benes_wide"}
 
 
 def benes_path(words_pad: int) -> str:
     """The path of csrc/benes.cu for a network of `words_pad` words:
-    "register" up to `REGISTER_WORDS_PAD`, "shared" up to
-    `SHARED_WORDS_PAD`, "wide" above."""
+    "register" up to `REGISTER_WORDS_PAD`, "lanes" up to
+    `LANES_WORDS_PAD`, "wide" above."""
     if words_pad <= REGISTER_WORDS_PAD:
         return "register"
-    return "shared" if words_pad <= SHARED_WORDS_PAD else "wide"
+    return "lanes" if words_pad <= LANES_WORDS_PAD else "wide"
+
+
+def lane_masks(plan, device) -> torch.Tensor:
+    """The plan's masks in the lane-group path's layout, copied once per
+    device and cached on the plan: per stage ``[K/4, L, 4]`` (K =
+    `LANE_WORDS`, L = WP / K), where word ``[i // 4, q, i % 4]`` is network
+    row ``i * L + q``, local row i of lane q.  A `StackedPlans` keeps its
+    leading plan axis."""
+    key = f"{torch.device(device)}/lanes"
+    ops = plan._device.get(key)
+    if ops is None:
+        masks, _ = pb.device_operands(plan, device)
+        k = LANE_WORDS
+        lanes = plan.words_pad // k
+        *lead, stages, _ = masks.shape
+        ops = (masks.reshape(*lead, stages, k // 4, 4, lanes).transpose(-1, -2)
+               .contiguous().reshape(masks.shape))
+        plan._device[key] = ops
+    return ops
 
 
 def network_deltas(n_pad: int) -> tuple[int, ...]:
@@ -118,10 +144,12 @@ def _benes_cuda(name: str, words: torch.Tensor, plan, plan_stride: int,
                 key: torch.Tensor | None = None, path: str | None = None):
     """Launch csrc/benes.cu on `path` (default: `benes_path`'s pick)."""
     path = path or benes_path(plan.words_pad)
-    if path == "register" and plan.deltas != network_deltas(plan.n_pad):
+    if path in ("register", "lanes") and plan.deltas != network_deltas(plan.n_pad):
         raise ValueError(f"{name}: stage deltas {plan.deltas} are not the "
                          f"{plan.n_pad}-bit network's")
     masks, sched = pb.device_operands(plan, words.device)
+    if path == "lanes":
+        masks = lane_masks(plan, words.device)
     *lead, w, c = words.shape
     out = torch.empty_like(words)
     count = None if key is None else torch.zeros(lead, dtype=torch.int64, device=words.device)
@@ -139,8 +167,8 @@ def _benes_cuda(name: str, words: torch.Tensor, plan, plan_stride: int,
                 min(w, plan.words_pad), plan_stride, _PATH_CODES[path], stream_of(words)
             ))
         LAUNCHES[name] += grids(batch)
-        if path in ("wide", "global"):
-            LAUNCHES["benes_wide"] += grids(batch)
+        if path in _PATH_LAUNCHES:
+            LAUNCHES[_PATH_LAUNCHES[path]] += grids(batch)
     return out, count
 
 

@@ -1,6 +1,6 @@
 """Kernel times for comparing two trees of the port on one card, in turns.
 
-    PYTHONPATH=<tree> python3 csgn_tpu_torch/tools/ab_times.py {encrypt,benes,benes-wide}
+    PYTHONPATH=<tree> python3 csgn_tpu_torch/tools/ab_times.py {encrypt,benes,benes-wide,benes-lanes}
 
 times the kernels of the csgn_tpu_torch package found first on the path
 (the tree's), through the public wrappers, and prints one JSON line.  Run it
@@ -14,7 +14,12 @@ after one untimed call (CUDA events), three runs a kernel:
   * ``benes``: K8 on the register path at n = 1247 over 2^20 chunks, alone
     and right after its plain version;
   * ``benes-wide``: K8 and K12 on the wide path at n = 20000 over 2^14
-    chunks, and K8 with its global-scratch form forced.
+    chunks, and K8 with its global-scratch form forced;
+  * ``benes-lanes``: K8 as routed at n in {2049, 4095, 8191, 16383} over
+    2^20 chunks and at n in {20000, 40000} over 2^14, each in turns with
+    the paths forced that the tree has for that width (``--forced``), and
+    its operation bound (`network_ops` over 132 SMs x 64 INT32 lanes at the
+    maximum SM clock).
 
 It needs an NVIDIA GPU.
 """
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 
 import numpy as np
 import torch
@@ -95,13 +101,47 @@ def benes_wide_times(dev) -> dict:
                                                        path="global")[0]))}
 
 
+def benes_lanes_times(dev, forced) -> dict:
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                               check=True, timeout=60).stdout.split()[0])
+    out = {}
+    for n, chunks in ((2049, 1 << 20), (4095, 1 << 20), (8191, 1 << 20), (16383, 1 << 20),
+                      (20000, 1 << 14), (40000, 1 << 14)):
+        ctx = Context(n, 16)
+        plan = Permutation.random(n, torch.Generator().manual_seed(n)).benes_plan()
+        xs = _words(ctx, chunks, 5, dev)
+        ops = benes_kernels.network_ops(plan) * chunks  # the operation bound, 132 SMs x 64 lanes
+        row = {"path": benes_kernels.benes_path(plan.words_pad),
+               "bound_ms": ops / (132 * 64 * mhz * 1e6) * 1e3,
+               "routed": [run_ms(lambda x: benes_kernels.apply_benes(x, plan), xs)]}
+        for path in forced:
+            try:
+                row[path] = [run_ms(lambda x: benes_kernels._benes_cuda(
+                    "apply_benes", x, plan, 0, path=path)[0], xs)]
+            except (KeyError, RuntimeError, ValueError) as e:   # a path the tree lacks or
+                # that does not take this width
+                row[path] = str(e)[:80]
+        for path in forced[::-1]:
+            if isinstance(row[path], list):
+                row[path].append(run_ms(lambda x: benes_kernels._benes_cuda(
+                    "apply_benes", x, plan, 0, path=path)[0], xs))
+        row["routed"].append(run_ms(lambda x: benes_kernels.apply_benes(x, plan), xs))
+        out[n] = row
+        del xs
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("what", choices=("encrypt", "benes", "benes-wide"))
-    what = parser.parse_args().what
+    parser.add_argument("what", choices=("encrypt", "benes", "benes-wide", "benes-lanes"))
+    parser.add_argument("--forced", default="", help="benes-lanes: comma-separated paths to "
+                        "time in turns with the routed one")
+    args = parser.parse_args()
     dev = torch.device("cuda", 0)
-    fn = {"encrypt": encrypt_times, "benes": benes_times, "benes-wide": benes_wide_times}[what]
-    print(json.dumps({"package": csgn_tpu_torch.__file__, what: fn(dev)}))
+    fns = {"encrypt": encrypt_times, "benes": benes_times, "benes-wide": benes_wide_times,
+           "benes-lanes": lambda d: benes_lanes_times(d, [p for p in args.forced.split(",") if p])}
+    print(json.dumps({"package": csgn_tpu_torch.__file__, args.what: fns[args.what](dev)}))
 
 
 if __name__ == "__main__":

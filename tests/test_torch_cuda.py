@@ -140,8 +140,9 @@ def test_launch_counters_count_kernel_launches(dev):
     # Every product above has t1*t2 % 4 == 0, so the multiply's aligned mode
     # serves it; the unaligned and tiled modes count under their own keys.
     # The Philox engine, its stream dump, the write anchor and the Beneš
-    # kernel's wide path (n > 16384) are not called.
-    unused = ("encrypt_bits_philox", "philox_streams", "fill_anchor", "benes_wide")
+    # kernel's lane-group and wide paths (n > 2048) are not called.
+    unused = ("encrypt_bits_philox", "philox_streams", "fill_anchor", "benes_lanes",
+              "benes_wide")
     for name in before:
         want = before[name] + (0 if name in unused or name.endswith((
             "_unaligned", "_tiled", "_unaligned_batched", "_tiled_batched")) else 1)
@@ -156,7 +157,7 @@ def _perm_words(n, lead, chunks, seed, dev):
 
 
 # Every network width of the register path (WP = n_pad / 32 = 1, 2, 4, ...,
-# 64) and WP = 128 of the shared path.
+# 64) and WP = 128 of the lane-group path.
 BENES_WP_NS = [17, 20, 31, 33, 50, 100, 200, 400, 700, 1247, 2048, 2049, 4095]
 
 
@@ -206,7 +207,7 @@ def _benes_on(path, name, x, plan, key=None):
     return benes_kernels._benes_cuda(name, x, plan, stride, key, path=path)
 
 
-@pytest.mark.parametrize("path", ["register", "shared"])
+@pytest.mark.parametrize("path", ["register", "wide"])
 @pytest.mark.parametrize("n", [20, 1247])
 def test_benes_zero_stage_plans(dev, n, path):
     """The identity (every stage off) and a transposition (most stages off)
@@ -221,7 +222,7 @@ def test_benes_zero_stage_plans(dev, n, path):
                        x)
 
 
-@pytest.mark.parametrize("path", ["register", "shared"])
+@pytest.mark.parametrize("path", ["register", "wide"])
 @pytest.mark.parametrize("n", [20, 50, 100, 200, 400, 700, 1247, 2048])
 def test_benes_both_paths_match_plain(dev, n, path):
     """K8, K12 (count and parity) and K9 forced onto each path at every
@@ -247,25 +248,25 @@ def test_benes_both_paths_match_plain(dev, n, path):
         assert kernels.LAUNCHES[name] == before[name] + 1, name
 
 
-def test_benes_forced_shared_path_equals_register_at_1247(dev):
+def test_benes_forced_wide_path_equals_register_at_1247(dev):
     ctx, rng, x = _perm_words(1247, (), 1 << 16, 9, dev)
     p = Permutation(rng.permutation(1247))
     plan = p.benes_plan()
     key = _key(ctx, 9, "cpu").apply_permutation(p).mask_words.to(dev)
     x[:, ::7] |= core.permute_chunks(key[:, None], torch.tensor(p.inverse().perm), 1247)
     new = benes_kernels.apply_benes_decrypt(x, plan, key, return_count=True)
-    old = _benes_on("shared", "apply_benes_decrypt", x, plan, key)
+    old = _benes_on("wide", "apply_benes_decrypt", x, plan, key)
     assert torch.equal(new[0], old[0]) and int(new[1]) == int(old[1]) > 0
-    assert torch.equal(benes_kernels.apply_benes(x, plan), _benes_on("shared", "apply_benes", x,
+    assert torch.equal(benes_kernels.apply_benes(x, plan), _benes_on("wide", "apply_benes", x,
                                                                       plan)[0])
 
 
 def test_benes_register_path_refuses_wide_networks(dev):
     """WP = 128 has no register instantiation: the launch is refused and
-    raises, it does not fall back to the shared path."""
+    raises, it does not fall back to another path."""
     _, rng, x = _perm_words(4095, (), 33, 4, dev)
     plan = Permutation(rng.permutation(4095)).benes_plan()
-    assert benes_kernels.benes_path(plan.words_pad) == "shared"
+    assert benes_kernels.benes_path(plan.words_pad) == "lanes"
     with pytest.raises(RuntimeError, match="CUDA error"):
         _benes_on("register", "apply_benes", x, plan)
 
@@ -520,9 +521,10 @@ def test_fill_anchor_k5_matches_plain(dev, t1, t2, w):
 
 
 # ---------------------------------------------------------------------------
-# The Beneš kernel's wide path (n > 16384)
+# The Beneš kernel's lane-group path (64 < WP <= 2048) and wide path
 # ---------------------------------------------------------------------------
 
+LANE_NS = [2049, 4095, 8191, 16383, 16385, 20000, 40000]   # WP = 128 ... 2048
 WIDE_NS = [16385, 20000, 40000, 70000]   # WP = 1024, 1024, 2048, 4096
 
 
@@ -542,34 +544,73 @@ def _wide_case(n, lead, chunks, dev):
     return ctx, x
 
 
-@pytest.mark.parametrize("n", WIDE_NS)
-@pytest.mark.parametrize("chunks", [4096, 1000])
-def test_benes_wide_path_k8_k9_k12_match_plain(dev, n, chunks):
-    """K8, K12 (count and parity) and K9 on the wide path, bit-equal to their
-    plain versions, at 4,096 chunks and at 1,000 (not a multiple of the
-    32-column tile)."""
+def _k8_k9_k12_on(path, n, chunks, dev):
+    """K8, K12 (count and parity) and K9 (two plans) on `path` (None: the
+    routed one) against their plain versions; returns the wrappers' launches."""
     p, q, r = _wide_perms(n)
     plan = p.benes_plan()
-    assert benes_kernels.benes_path(plan.words_pad) == "wide"
     ctx, x = _wide_case(n, (), chunks, dev)
     before = dict(kernels.LAUNCHES)
-    got = benes_kernels.apply_benes(x, plan)
-    assert torch.equal(got, benes_kernels.apply_benes_plain(x, plan))
+    assert torch.equal(_benes_on(path, "apply_benes", x, plan)[0],
+                       benes_kernels.apply_benes_plain(x, plan))
     key = _key(ctx, n, "cpu").apply_permutation(p).mask_words.to(dev)
     x[:, 0:chunks:3] |= core.permute_chunks(key[:, None], torch.tensor(p.inverse().perm), n)
-    out, count = benes_kernels.apply_benes_decrypt(x, plan, key, return_count=True)
+    out, count = _benes_on(path, "apply_benes_decrypt", x, plan, key)
     want_out, want_count = benes_kernels.apply_benes_decrypt_plain(x, plan, key,
                                                                    return_count=True)
     assert torch.equal(out, want_out)
     assert int(count) == int(want_count) >= len(range(0, chunks, 3))
-    assert int(benes_kernels.apply_benes_decrypt(x, plan, key)[1]) == int(want_count) & 1
+    if path is None:
+        assert int(benes_kernels.apply_benes_decrypt(x, plan, key)[1]) == int(want_count) & 1
     _, xb = _wide_case(n, (2,), chunks, dev)
     stacked = pb.stack_plans([q.benes_plan(), r.benes_plan()])
-    assert torch.equal(benes_kernels.apply_benes_batch(xb, stacked),
+    assert torch.equal(_benes_on(path, "apply_benes_batch", xb, stacked)[0],
                        benes_kernels.apply_benes_batch_plain(xb, stacked))
-    assert kernels.LAUNCHES["benes_wide"] == before["benes_wide"] + 4
+    return {k: kernels.LAUNCHES[k] - before[k] for k in before}
+
+
+@pytest.mark.parametrize("n", LANE_NS)
+@pytest.mark.parametrize("chunks", [1, 129, 1000, 1025])
+def test_benes_lanes_k8_k9_k12_match_plain(dev, n, chunks):
+    """K8, K12 and K9 routed to the lane-group path at every width it takes,
+    over chunk counts that are not multiples of a warp's or a block's
+    chunks."""
+    wp = _wide_perms(n)[0].benes_plan().words_pad
+    assert benes_kernels.benes_path(wp) == "lanes"
+    launched = _k8_k9_k12_on(None, n, chunks, dev)
+    assert launched["benes_lanes"] == 4 and launched["benes_wide"] == 0
     for name, k in (("apply_benes", 1), ("apply_benes_decrypt", 2), ("apply_benes_batch", 1)):
-        assert kernels.LAUNCHES[name] == before[name] + k, name
+        assert launched[name] == k, name
+
+
+@pytest.mark.parametrize("n", [4095, 20000, 40000])
+def test_benes_lanes_zero_stage_plans(dev, n):
+    """The identity (every stage off) and a transposition (most stages off)
+    on the lane-group path: the plan staged in shared memory (WP = 128 and
+    1024) and read through L1 (WP = 2048)."""
+    _, _, x = _perm_words(n, (), 300, 5, dev)
+    swap = np.arange(n)
+    swap[3], swap[n - 7] = swap[n - 7], swap[3]
+    for p in (Permutation.identity(n), Permutation(swap)):
+        assert torch.equal(_benes_on("lanes", "apply_benes", x, p.benes_plan())[0],
+                           benes_kernels.apply_benes_plain(x, p.benes_plan()))
+    assert torch.equal(_benes_on("lanes", "apply_benes", x,
+                                 Permutation.identity(n).benes_plan())[0], x)
+
+
+@pytest.mark.parametrize("n", WIDE_NS)
+@pytest.mark.parametrize("chunks", [4096, 1000])
+def test_benes_wide_path_k8_k9_k12_match_plain(dev, n, chunks):
+    """K8, K12 (count) and K9 on the wide path, bit-equal to their plain
+    versions, at 4,096 chunks and at 1,000 (not a multiple of the 32-column
+    tile): routed there at n = 70000, forced at the lane-group path's
+    widths."""
+    wp = _wide_perms(n)[0].benes_plan().words_pad
+    assert benes_kernels.benes_path(wp) == ("wide" if n > 65536 else "lanes")
+    launched = _k8_k9_k12_on("wide", n, chunks, dev)
+    assert launched["benes_wide"] == 3 and launched["benes_lanes"] == 0
+    for name in ("apply_benes", "apply_benes_decrypt", "apply_benes_batch"):
+        assert launched[name] == 1, name
 
 
 def test_benes_wide_path_one_column_a_thread(dev):
@@ -612,8 +653,10 @@ def test_benes_wide_and_global_forms_match_plain(dev, n):
 
 
 def test_benes_wide_path_through_the_api(dev):
-    """Context(20000, 16): a ciphertext permuted on the card, decrypted under
-    the permuted key (1), and permuted back; a fleet re-keyed per element."""
+    """Context(20000, 16), on the lane-group path: a ciphertext permuted on
+    the card, decrypted under the permuted key (1), and permuted back; a
+    fleet re-keyed per element."""
+    before = kernels.LAUNCHES["benes_lanes"]
     ctx = Context(20000, 16)
     sk = _key(ctx, 5, dev)
     p, q, _ = _wide_perms(20000)
@@ -626,6 +669,7 @@ def test_benes_wide_path_through_the_api(dev):
     fleet = CiphertextBatch.stack([c, Ciphertext(sk.encrypt_batch([0, 1, 1, 1, 0], 10), ctx)])
     got = fleet.apply_permutations([p, q])
     assert [int(sk.apply_permutation(x).decrypt(got[i])) for i, x in enumerate((p, q))] == [1, 1]
+    assert kernels.LAUNCHES["benes_lanes"] >= before + 4
 
 
 # ---------------------------------------------------------------------------
@@ -638,7 +682,7 @@ GOLDEN = pathlib.Path(__file__).parent / "golden" / "golden_vectors.json"
 @pytest.mark.parametrize("which", [0, 1, 2], ids=["n1247", "n95", "n4095"])
 def test_golden_vectors_through_the_kernels(dev, which):
     """The golden add, mul (K1), decrypt (K3) and permutation (K8: register
-    path at n = 95 and 1247, shared path at 4095) vectors dumped from the C++
+    path at n = 95 and 1247, lane-group path at 4095) vectors dumped from the C++
     reference, on the card."""
     sc = json.loads(GOLDEN.read_text())["scenarios"][which]
     ctx = Context(sc["n"], sc["d"])
@@ -666,7 +710,7 @@ def test_golden_vectors_through_the_kernels(dev, which):
     np.testing.assert_array_equal(pc1.to_u64(), u64("permuted_c1"))
     assert int(sk.apply_permutation(p).decrypt(pc1)) == sc["dec"]["permuted_c1"]
     path = benes_kernels.benes_path(p.benes_plan().words_pad)
-    assert path == ("shared" if sc["n"] == 4095 else "register")
+    assert path == ("lanes" if sc["n"] == 4095 else "register")
     for name in ("mul_chunks", "decrypt_parity", "apply_benes"):
         assert kernels.LAUNCHES[name] > before[name], name
 

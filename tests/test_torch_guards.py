@@ -255,6 +255,7 @@ def test_order_tag_api():
 
 @pytest.mark.parametrize("wp", [1024, 4096])
 def test_benes_path_takes_any_width(wp):
-    """Networks past 512 words (n > 16384) route to the wide path; none is
-    refused for its size."""
-    assert benes_kernels.benes_path(wp) == "wide"
+    """Networks past 64 words route to the lane-group path up to 2048 words
+    (n <= 65536) and to the wide path past it; none is refused for its
+    size."""
+    assert benes_kernels.benes_path(wp) == ("lanes" if wp <= 2048 else "wide")
