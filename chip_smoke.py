@@ -10,7 +10,7 @@ once under `torch.profiler`, and prints each path's host wall, device busy
 time, idle share and heaviest kernels as [profile] lines.
 
 Phases, each printing lines tagged [device] / [build] / [check] / [main] /
-[rotate] / [circuit] / [entry] / [sharded] / [time]:
+[rotate] / [circuit] / [entry] / [sharded] / [programs] / [time]:
 
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: the CUDA kernels from csgn_tpu_torch/csrc, with the seconds taken,
@@ -55,8 +55,8 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      key and a permutation through both checkpoint formats, and the encrypt
      statistics (`csgn_tpu_torch.tools.enc_stats`) at Context(4095, 32) over
      2^20 columns; every kernel of this path must be launched during it;
-  4e. the sharded path (`csgn_tpu_torch.parallel`) in-process at world size
-     1 over NCCL, Context(1247, 16): a 4096 x 4096 `sharded_mul_decrypt`
+  4e. the sharded path (`csgn_tpu_torch.parallel`) in-process in a job of
+     one rank over NCCL, Context(1247, 16): a 4096 x 4096 `sharded_mul_decrypt`
      (parity 1 = chunk_matches), `sharded_mul_ring` and
      `sharded_mul_allgather` at 4099 x 37 (the unaligned mode), a
      `sharded_permute` of 2^20 chunks, `mul_chain_sharded_decrypt` on 4099 x
@@ -66,8 +66,18 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      K8 at n = 70000 on its wide kernel through the public API, against the
      plain versions; every kernel of this path must
      be launched during it; then `sharded_mul_decrypt` in turns with
-     `mul_and_decrypt` (the layer's cost with no peer), and the process
-     group is destroyed;
+     `mul_and_decrypt` (the layer's cost with no peer);
+  4f. the user programs at Context(1247, 16), each through its main() on
+     the default device: the eight examples of `csgn_tpu_torch.examples`
+     (voting at 4096 voters, key_rotation at a fleet of 64, sharded_pipeline
+     and the scaling report in 4e's job), the validate sweep at its full shapes (every case equal to
+     its plain version on the card), the serving demo (32 requests per
+     request and in one flush, three trials), the scaling report at world
+     size 1, and the fault demo as a subprocess beside the examples (two
+     gloo ranks on the CPU, the last killed mid-step, the resume on the
+     card); the multiply's
+     aligned and unaligned modes, K3, K4, K7, K8 and K9 must be launched
+     during it; then 4e's job is destroyed;
   5. timings of each kernel and its plain version at the paths' shapes
      (CUDA events, warm-up, median of distinct inputs; nothing is asserted);
      the multiply's modes also against the aligned mode and today's
@@ -94,8 +104,10 @@ from __future__ import annotations
 
 import argparse
 import functools
+import hmac
 import json
 import operator
+import os
 import pathlib
 import shutil
 import statistics
@@ -117,7 +129,9 @@ from csgn_tpu_torch.ops import permute_benes as pb
 from csgn_tpu_torch.parallel import dryrun
 from csgn_tpu_torch.pipeline import (mul_chain, mul_chain_decrypt, mul_chain_sharded,
                                      mul_chain_sharded_decrypt)
-from csgn_tpu_torch.tools import enc_stats
+from csgn_tpu_torch.examples import (bristol_adder, deep_chain, encrypted_aes, encrypted_hmac,
+                                     key_rotation, netlist_service, sharded_pipeline, voting)
+from csgn_tpu_torch.tools import enc_stats, scaling_bench, serve_demo, validate
 
 SEED = 20261016
 M32 = 0xFFFFFFFF
@@ -213,6 +227,10 @@ CIRCUIT_PATH = ("mul_chunks_unaligned", "mul_decrypt_unaligned", "mul_chunks_til
 ENTRY_PATH = ("encrypt_bits_counter", "encrypt_bits_philox", "philox_streams", "fill_anchor",
               "mul_chunks", "mul_decrypt", "mul_chunks_unaligned", "decrypt_parity",
               "chunk_matches", "apply_benes")
+PROGRAMS_PATH = ("mul_chunks", "mul_chunks_unaligned", "mul_decrypt", "mul_decrypt_unaligned",
+                 "mul_chunks_batched", "mul_decrypt_batched", "decrypt_parity",
+                 "decrypt_parity_batched", "chunk_matches", "encrypt_bits_counter",
+                 "encrypt_bits_philox", "apply_benes", "apply_benes_batch")
 SHARDED_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "encrypt_bits_counter",
                 "apply_benes", "apply_benes_batch", "apply_benes_decrypt",
                 "mul_chunks_unaligned", "mul_decrypt_unaligned", "benes_lanes", "benes_wide",
@@ -267,7 +285,8 @@ def canon_words(ctx: Context, shape, gen: torch.Generator, dev) -> torch.Tensor:
 def check_kernels(ctx, sk, gen, dev, errs: dict) -> None:
     m = sk.mask_words
     saw_parity_one = False
-    for t1, t2 in [(1, 1), (3, 5), (13, 7), (9, 33), (128, 130), (MAIN_T, MAIN_T)]:
+    # 128 x 128 is the JAX package's __graft_entry__.entry() step.
+    for t1, t2 in [(1, 1), (3, 5), (13, 7), (9, 33), (128, 128), (128, 130), (MAIN_T, MAIN_T)]:
         a = force(rand_words(ctx, t1, gen, dev), slice(0, t1, 2), m)
         b = force(rand_words(ctx, t2, gen, dev), slice(0, t2, 3), m)
         want = kernels.mul_chunks_plain(a, b)
@@ -1013,16 +1032,16 @@ def entry_path(ctx, indices, rng, pgen) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 
-def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str) -> tuple[dict, dict]:
-    """`csgn_tpu_torch.parallel` in-process at world size 1 over NCCL (a
-    ``file://`` store in the gitignored build directory): the headline fused
+def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str, dev) -> tuple[dict, dict]:
+    """`csgn_tpu_torch.parallel` in-process at world size 1 over NCCL, in the
+    job `main` opened on `dev` (a ``file://`` store in the gitignored build
+    directory, SHARD_DIR): the headline fused
     product sharded, the ring and all-gather products in the unaligned mode,
     a sharded permutation of 2^20 chunks, the sharded chain fused with the
     decrypt, a checkpoint written from the ranks and resumed onto the mesh,
     the dry run, the 2-D ops on a (1, 1) mesh, and one K8 / K9 / K12 launch
     at n = LANES_N on the Beneš kernel's lane-group path and a K8 at n =
-    WIDE_N on its wide kernel through the public API.
-    The process group is destroyed before returning.  Returns (launches,
+    WIDE_N on its wide kernel through the public API.  Returns (launches,
     timings)."""
     bits1, bits2 = odd_bits(rng, MAIN_T), odd_bits(rng, MAIN_T)
     ring_bits = [odd_bits(rng, t) for t in SHARD_RING_T]
@@ -1035,140 +1054,133 @@ def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str) -> tuple[dict, 
     bp = wide_perms[WIDE_N][0]
     perm = Permutation.random(ctx, pgen)
     perm.benes_plan()
-    shutil.rmtree(SHARD_DIR, ignore_errors=True)
-    SHARD_DIR.mkdir(parents=True)
-    dev = parallel.initialize(f"file://{SHARD_DIR / 'store'}", 1, 0)
-    try:
-        require(torch.distributed.get_backend() == "nccl", "the process group is not NCCL")
-        for name in kernels.LAUNCHES:
-            kernels.LAUNCHES[name] = 0
-        steps: dict = {}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    require(torch.distributed.get_backend() == "nccl", "the process group is not NCCL")
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    steps: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
 
-        mesh = parallel.global_chunk_mesh()
-        require(mesh.device == dev and mesh.shape == {"c": 1}, f"mesh {mesh}")
-        sk = SecretKey(ctx, indices)
-        m = sk.mask_words
-        ops = sk.encrypt_operands
+    mesh = parallel.global_chunk_mesh()
+    require(mesh.device == dev and mesh.shape == {"c": 1}, f"mesh {mesh}")
+    sk = SecretKey(ctx, indices)
+    m = sk.mask_words
+    ops = sk.encrypt_operands
 
-        # The headline: a 4096 x 4096 fused product, sharded.
-        c1, c2 = (parallel.sharded_encrypt_bits(SEED + 800 + i, torch.from_numpy(b).to(dev), *ops,
-                                                ctx.n, ctx.d, mesh) for i, b in enumerate(
-                                                    (bits1, bits2)))
-        enc_ok = torch.equal(c1, sk.encrypt_batch(bits1, SEED + 800))
-        prod, parity = _timed(steps, f"sharded_mul_decrypt {MAIN_T}x{MAIN_T}",
-                              lambda: parallel.sharded_mul_decrypt(c1, c2, m, mesh))
-        oracle = int(core.chunk_matches(prod, m).sum() & 1)
-        require(enc_ok, "sharded encrypt != the one-device encrypt")
-        require(int(parity) == oracle == 1, f"sharded_mul_decrypt parity {int(parity)}, "
-                f"chunk_matches {oracle}, expected 1")
-        require(tuple(prod.shape) == (ctx.words32, MAIN_T * MAIN_T), "headline product shape")
-        head = prod[:, :1 << 20].contiguous()                   # 2^20 chunks for the permute
-        del prod
+    # The headline: a 4096 x 4096 fused product, sharded.
+    c1, c2 = (parallel.sharded_encrypt_bits(SEED + 800 + i, torch.from_numpy(b).to(dev), *ops,
+                                            ctx.n, ctx.d, mesh) for i, b in enumerate(
+                                                (bits1, bits2)))
+    enc_ok = torch.equal(c1, sk.encrypt_batch(bits1, SEED + 800))
+    prod, parity = _timed(steps, f"sharded_mul_decrypt {MAIN_T}x{MAIN_T}",
+                          lambda: parallel.sharded_mul_decrypt(c1, c2, m, mesh))
+    oracle = int(core.chunk_matches(prod, m).sum() & 1)
+    require(enc_ok, "sharded encrypt != the one-device encrypt")
+    require(int(parity) == oracle == 1, f"sharded_mul_decrypt parity {int(parity)}, "
+            f"chunk_matches {oracle}, expected 1")
+    require(tuple(prod.shape) == (ctx.words32, MAIN_T * MAIN_T), "headline product shape")
+    head = prod[:, :1 << 20].contiguous()                   # 2^20 chunks for the permute
+    del prod
 
-        # Ring and all-gather in the unaligned mode.
-        a, b = (sk.encrypt_batch(x, SEED + 810 + i) for i, x in enumerate(ring_bits))
-        ring = _timed(steps, "sharded_mul_ring", lambda: parallel.sharded_mul_ring(a, b, mesh))
-        gath = _timed(steps, "sharded_mul_allgather",
-                      lambda: parallel.sharded_mul_allgather(a, b, mesh))
-        require(torch.equal(ring, gath) and torch.equal(ring, kernels.mul_chunks_plain(a, b)),
-                "ring / all-gather != the plain product")
-        del ring, gath
+    # Ring and all-gather in the unaligned mode.
+    a, b = (sk.encrypt_batch(x, SEED + 810 + i) for i, x in enumerate(ring_bits))
+    ring = _timed(steps, "sharded_mul_ring", lambda: parallel.sharded_mul_ring(a, b, mesh))
+    gath = _timed(steps, "sharded_mul_allgather",
+                  lambda: parallel.sharded_mul_allgather(a, b, mesh))
+    require(torch.equal(ring, gath) and torch.equal(ring, kernels.mul_chunks_plain(a, b)),
+            "ring / all-gather != the plain product")
+    del ring, gath
 
-        # A sharded permutation of 2^20 chunks, decrypted under the permuted key.
-        psk = sk.apply_permutation(perm)
-        rot = _timed(steps, "sharded_permute 2^20",
-                     lambda: parallel.sharded_permute(head, perm.benes_plan(), mesh))
-        d_head = int(parallel.sharded_decrypt_parity(head, m, mesh))
-        d_rot = int(parallel.sharded_decrypt_parity(rot, psk.mask_words, mesh))
-        require(d_rot == d_head, f"permuted block decrypts to {d_rot}, not {d_head}")
-        require(torch.equal(rot[:, :4096], core.permute_chunks(
-            head[:, :4096], torch.tensor(perm.perm), ctx.n)), "sharded permute != gather oracle")
-        del rot
+    # A sharded permutation of 2^20 chunks, decrypted under the permuted key.
+    psk = sk.apply_permutation(perm)
+    rot = _timed(steps, "sharded_permute 2^20",
+                 lambda: parallel.sharded_permute(head, perm.benes_plan(), mesh))
+    d_head = int(parallel.sharded_decrypt_parity(head, m, mesh))
+    d_rot = int(parallel.sharded_decrypt_parity(rot, psk.mask_words, mesh))
+    require(d_rot == d_head, f"permuted block decrypts to {d_rot}, not {d_head}")
+    require(torch.equal(rot[:, :4096], core.permute_chunks(
+        head[:, :4096], torch.tensor(perm.perm), ctx.n)), "sharded permute != gather oracle")
+    del rot
 
-        # The sharded chain, fused with the decrypt: 4099 x 37 x 111.
-        cts = [Ciphertext(sk.encrypt_batch(x, SEED + 820 + i), ctx)
-               for i, x in enumerate(chain_bits)]
-        chain, p_chain = _timed(steps, "mul_chain_sharded_decrypt",
-                                lambda: mul_chain_sharded_decrypt(cts, sk, mesh))
-        two = mul_chain_sharded(cts[:2], mesh)
-        require(int(p_chain) == 1 == int(core.chunk_matches(chain.wt, m).sum() & 1),
-                f"sharded chain parity {int(p_chain)} != 1")
-        require(torch.equal(chain.wt, kernels.mul_chunks_plain(two.wt, cts[2].wt)),
-                "sharded chain != the plain product of its steps")
-        del chain
+    # The sharded chain, fused with the decrypt: 4099 x 37 x 111.
+    cts = [Ciphertext(sk.encrypt_batch(x, SEED + 820 + i), ctx)
+           for i, x in enumerate(chain_bits)]
+    chain, p_chain = _timed(steps, "mul_chain_sharded_decrypt",
+                            lambda: mul_chain_sharded_decrypt(cts, sk, mesh))
+    two = mul_chain_sharded(cts[:2], mesh)
+    require(int(p_chain) == 1 == int(core.chunk_matches(chain.wt, m).sum() & 1),
+            f"sharded chain parity {int(p_chain)} != 1")
+    require(torch.equal(chain.wt, kernels.mul_chunks_plain(two.wt, cts[2].wt)),
+            "sharded chain != the plain product of its steps")
+    del chain
 
-        # Checkpoint from the ranks, resumed onto the mesh.
-        _timed(steps, "save_state_sharded (mesh)", lambda: cio.save_state_sharded(
-            SHARD_DIR / "ckpt", {"two": two, "sk": sk, "perm": perm}, mesh))
-        back = _timed(steps, "load_state_sharded (mesh)",
-                      lambda: cio.load_state_sharded(SHARD_DIR / "ckpt", mesh=mesh))
-        require(torch.equal(back["two"].wt, two.wt) and back["two"].wt.is_cuda
-                and back["perm"] == perm, "checkpoint round trip differs")
-        require(int(back["sk"].decrypt(back["two"])) == 1, "resumed chain does not decrypt to 1")
-        del two, back, cts
+    # Checkpoint from the ranks, resumed onto the mesh.
+    _timed(steps, "save_state_sharded (mesh)", lambda: cio.save_state_sharded(
+        SHARD_DIR / "ckpt", {"two": two, "sk": sk, "perm": perm}, mesh))
+    back = _timed(steps, "load_state_sharded (mesh)",
+                  lambda: cio.load_state_sharded(SHARD_DIR / "ckpt", mesh=mesh))
+    require(torch.equal(back["two"].wt, two.wt) and back["two"].wt.is_cuda
+            and back["perm"] == perm, "checkpoint round trip differs")
+    require(int(back["sk"].decrypt(back["two"])) == 1, "resumed chain does not decrypt to 1")
+    del two, back, cts
 
-        # The dry run, and the 2-D ops on a (1, 1) mesh.
-        summary = _timed(steps, "dryrun.run", lambda: dryrun.run(workdir=SHARD_DIR))
-        mesh2 = parallel.batch_chunk_mesh(1, 1)
-        fleet = torch.stack([sk.encrypt_batch(fleet_bits[i], SEED + 830 + i)
-                             for i in range(FLEET)])                      # [64, 40, 128]
-        blk = parallel.shard_batch(fleet, mesh2)
-        grown = parallel.sharded_mul_batch(blk, blk, mesh2)
-        dec = parallel.sharded_decrypt_batch(grown, m, mesh2).cpu().numpy()
-        rot_b = parallel.sharded_permute_batch(grown, perm.benes_plan(), mesh2)
-        dec_rot = psk.decrypt_batch(rot_b).cpu().numpy()
-        want = fleet_bits.sum(axis=1) % 2
-        require(np.array_equal(dec, want) and np.array_equal(dec_rot, want),
-                "2-D sharded fleet decrypts != bits")
-        require(torch.equal(grown, kernels.mul_chunks_plain(fleet, fleet)), "2-D product")
-        del fleet, blk, grown, rot_b
+    # The dry run, and the 2-D ops on a (1, 1) mesh.
+    summary = _timed(steps, "dryrun.run", lambda: dryrun.run(workdir=SHARD_DIR))
+    mesh2 = parallel.batch_chunk_mesh(1, 1)
+    fleet = torch.stack([sk.encrypt_batch(fleet_bits[i], SEED + 830 + i)
+                         for i in range(FLEET)])                      # [64, 40, 128]
+    blk = parallel.shard_batch(fleet, mesh2)
+    grown = parallel.sharded_mul_batch(blk, blk, mesh2)
+    dec = parallel.sharded_decrypt_batch(grown, m, mesh2).cpu().numpy()
+    rot_b = parallel.sharded_permute_batch(grown, perm.benes_plan(), mesh2)
+    dec_rot = psk.decrypt_batch(rot_b).cpu().numpy()
+    want = fleet_bits.sum(axis=1) % 2
+    require(np.array_equal(dec, want) and np.array_equal(dec_rot, want),
+            "2-D sharded fleet decrypts != bits")
+    require(torch.equal(grown, kernels.mul_chunks_plain(fleet, fleet)), "2-D product")
+    del fleet, blk, grown, rot_b
 
-        # The Beneš kernel's lane-group path at n = LANES_N and its wide
-        # kernel at n = WIDE_N, through the public API.
-        wsk = SecretKey(wctx, torch.randperm(LANES_N, generator=pgen)[:16].numpy())
-        wct = Ciphertext(wsk.encrypt_batch(wide_bits, SEED + 840), wctx)
-        wrot = wct.apply_permutation(wp)
-        d_wide = int(wsk.apply_permutation(wp).decrypt(wrot))
-        wfleet = CiphertextBatch.stack([wct, wct])
-        wrot2 = wfleet.apply_permutations([wq, wr])
-        wfused, wcount = benes_kernels.apply_benes_decrypt(
-            wct.wt, wp.benes_plan(), wsk.apply_permutation(wp).mask_words, return_count=True)
-        bsk = SecretKey(bctx, torch.randperm(WIDE_N, generator=pgen)[:16].numpy())
-        bct = Ciphertext(bsk.encrypt_batch(big_bits, SEED + 841), bctx)
-        brot = bct.apply_permutation(bp)
-        d_big = int(bsk.apply_permutation(bp).decrypt(brot))
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        # Held against the plain versions (not counted: the path's run is over).
-        e = max(max_abs_err(wrot.wt, benes_kernels.apply_benes_plain(wct.wt, wp.benes_plan())),
-                max_abs_err(wrot2.wt, benes_kernels.apply_benes_batch_plain(
-                    wfleet.wt, pb.stack_plans([wq.benes_plan(), wr.benes_plan()]))),
-                max_abs_err(wfused, wrot.wt),
-                max_abs_err(brot.wt, benes_kernels.apply_benes_plain(bct.wt, bp.benes_plan())))
-        _, want_count = benes_kernels.apply_benes_decrypt_plain(
-            wct.wt, wp.benes_plan(), wsk.apply_permutation(wp).mask_words, return_count=True)
-        require(e == 0 and int(wcount) == int(want_count),
-                f"lane-group path at n={LANES_N} or wide kernel at n={WIDE_N} != plain")
-        require(d_wide == d_big == 1 and int(wcount) & 1 == 1,
-                f"rotations decrypt to {d_wide} (n={LANES_N}) and {d_big} (n={WIDE_N})")
-        idle = [k for k in SHARDED_PATH if launches[k] == 0]
-        require(not idle, f"sharded path never launched: {idle}")
+    # The Beneš kernel's lane-group path at n = LANES_N and its wide
+    # kernel at n = WIDE_N, through the public API.
+    wsk = SecretKey(wctx, torch.randperm(LANES_N, generator=pgen)[:16].numpy())
+    wct = Ciphertext(wsk.encrypt_batch(wide_bits, SEED + 840), wctx)
+    wrot = wct.apply_permutation(wp)
+    d_wide = int(wsk.apply_permutation(wp).decrypt(wrot))
+    wfleet = CiphertextBatch.stack([wct, wct])
+    wrot2 = wfleet.apply_permutations([wq, wr])
+    wfused, wcount = benes_kernels.apply_benes_decrypt(
+        wct.wt, wp.benes_plan(), wsk.apply_permutation(wp).mask_words, return_count=True)
+    bsk = SecretKey(bctx, torch.randperm(WIDE_N, generator=pgen)[:16].numpy())
+    bct = Ciphertext(bsk.encrypt_batch(big_bits, SEED + 841), bctx)
+    brot = bct.apply_permutation(bp)
+    d_big = int(bsk.apply_permutation(bp).decrypt(brot))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    # Held against the plain versions (not counted: the path's run is over).
+    e = max(max_abs_err(wrot.wt, benes_kernels.apply_benes_plain(wct.wt, wp.benes_plan())),
+            max_abs_err(wrot2.wt, benes_kernels.apply_benes_batch_plain(
+                wfleet.wt, pb.stack_plans([wq.benes_plan(), wr.benes_plan()]))),
+            max_abs_err(wfused, wrot.wt),
+            max_abs_err(brot.wt, benes_kernels.apply_benes_plain(bct.wt, bp.benes_plan())))
+    _, want_count = benes_kernels.apply_benes_decrypt_plain(
+        wct.wt, wp.benes_plan(), wsk.apply_permutation(wp).mask_words, return_count=True)
+    require(e == 0 and int(wcount) == int(want_count),
+            f"lane-group path at n={LANES_N} or wide kernel at n={WIDE_N} != plain")
+    require(d_wide == d_big == 1 and int(wcount) & 1 == 1,
+            f"rotations decrypt to {d_wide} (n={LANES_N}) and {d_big} (n={WIDE_N})")
+    idle = [k for k in SHARDED_PATH if launches[k] == 0]
+    require(not idle, f"sharded path never launched: {idle}")
 
-        # The layer's cost with no peer: sharded_mul_decrypt against
-        # mul_and_decrypt on the same operands, in turns.
-        pairs = [tuple(sk.encrypt_batch(odd_bits(rng, MAIN_T), SEED + 850 + 2 * k + i)
-                       for i in range(2)) for k in range(REPS)]
-        cpairs = [(Ciphertext(x, ctx), Ciphertext(y, ctx)) for x, y in pairs]
-        sh_ms, md_ms = time_pair(
-            lambda k: parallel.sharded_mul_decrypt(*pairs[k], m, mesh),
-            lambda k: sk.mul_and_decrypt(*cpairs[k]), [(k,) for k in range(REPS)])
-        del pairs, cpairs
-    finally:
-        torch.distributed.destroy_process_group()
-        shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    # The layer's cost with no peer: sharded_mul_decrypt against
+    # mul_and_decrypt on the same operands, in turns.
+    pairs = [tuple(sk.encrypt_batch(odd_bits(rng, MAIN_T), SEED + 850 + 2 * k + i)
+                   for i in range(2)) for k in range(REPS)]
+    cpairs = [(Ciphertext(x, ctx), Ciphertext(y, ctx)) for x, y in pairs]
+    sh_ms, md_ms = time_pair(
+        lambda k: parallel.sharded_mul_decrypt(*pairs[k], m, mesh),
+        lambda k: sk.mul_and_decrypt(*cpairs[k]), [(k,) for k in range(REPS)])
+    del pairs, cpairs
     print(f"[sharded] world size 1 over NCCL ({mesh}): {MAIN_T}x{MAIN_T} sharded_mul_decrypt "
           f"parity {int(parity)} = chunk_matches; ring = all-gather = plain at "
           f"{SHARD_RING_T[0]}x{SHARD_RING_T[1]}; sharded_permute of 2^20 chunks decrypts "
@@ -1183,6 +1195,107 @@ def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str) -> tuple[dict, 
     print(f"[sharded] launches {json.dumps({k: launches[k] for k in SHARDED_PATH})}; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return launches, {"sharded_ms": sh_ms, "mul_and_decrypt_ms": md_ms, "steps": steps}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4f: the user programs, each through its main()
+# ---------------------------------------------------------------------------
+
+
+def programs_path(card: str) -> tuple[dict, dict]:
+    """The eight examples at Context(1247, 16) (voting at MAIN_T voters,
+    key_rotation at a fleet of FLEET, sharded_pipeline in the job of one
+    rank that `main` opened for phases 4e and 4f), the validate sweep at its
+    full shapes, the serving demo, the scaling report at world size 1, and
+    the fault demo as a subprocess (two gloo ranks on the CPU, the resume on
+    the card).  The fault demo, most of it process start-up, runs beside the
+    examples and the sweep, and is waited for before the two timed programs
+    (serve_demo, scaling_bench).  Each example checks its own decrypts; this
+    phase also holds their draw-independent results.  Returns (launches,
+    results)."""
+    n, d = 1247, 16
+    root = pathlib.Path(__file__).resolve().parent
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    steps: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    fault = subprocess.Popen(
+        [sys.executable, "-m", "csgn_tpu_torch.tools.fault_demo", "--nproc", "2"], cwd=root,
+        env=dict(os.environ, PYTHONPATH=str(root)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        out = {
+            "voting": _timed(steps, "voting", lambda: voting.main(voters=MAIN_T, n=n, d=d)),
+            "deep_chain": _timed(steps, "deep_chain", lambda: deep_chain.main(n=n, d=d)),
+            "key_rotation": _timed(steps, "key_rotation",
+                                   lambda: key_rotation.main(fleet=FLEET, n=n, d=d)),
+            "bristol_adder": _timed(steps, "bristol_adder",
+                                    lambda: bristol_adder.main(n=n, d=d)),
+            "netlist_service": _timed(steps, "netlist_service",
+                                      lambda: netlist_service.main(n=n, d=d)),
+            "encrypted_aes": _timed(steps, "encrypted_aes",
+                                    lambda: encrypted_aes.main(n=n, d=d)),
+            "encrypted_hmac": _timed(steps, "encrypted_hmac",
+                                     lambda: encrypted_hmac.main(n=n, d=d)),
+            "sharded_pipeline": _timed(steps, "sharded_pipeline",
+                                       lambda: sharded_pipeline.main(n=n, d=d)),
+        }
+        rc = _timed(steps, "validate", validate.main)
+        require(rc == 0, "validate found cases that differ from the plain versions")
+        fault_out, fault_err = _timed(steps, "fault_demo wait",
+                                      lambda: fault.communicate(timeout=300))
+        steps["fault_demo"] = time.perf_counter() - t0
+        serve = _timed(steps, "serve_demo", serve_demo.main)
+        scaling = _timed(steps, "scaling_bench", lambda: scaling_bench.run(nproc=1))
+    finally:
+        if fault.poll() is None:
+            fault.kill()
+            fault.wait()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    print(fault_out.strip())
+    require(fault.returncode == 0 and "fault demo: OK" in fault_out
+            and "killed worker 1 of 2" in fault_out
+            and "on 1 rank (cuda:0): words_exact=True" in fault_out,
+            f"fault demo failed (rc {fault.returncode}): {fault_err[-3000:]}")
+    v, dc, kr = out["voting"], out["deep_chain"], out["key_rotation"]
+    require(v["voters"] == MAIN_T and v["parity"] == v["yes_votes"] % 2
+            and v["unanimous"] == int(v["yes_votes"] == MAIN_T), f"voting {v}")
+    require((dc["depth"], dc["final_chunks"], dc["peak_chunks"], dc["recrypts"],
+             dc["unbounded_chunks_would_be"], dc["decrypted"]) == (16, 16, 4096, 1, 1 << 16, 1),
+            f"deep_chain {dc}")
+    require(kr["fleet"] == FLEET and kr["decrypted"] == kr["expected"], f"key_rotation {kr}")
+    require(out["bristol_adder"]["sum"] == 123456789 + 987654321, "bristol_adder sum")
+    require(out["netlist_service"]["encrypt_dispatches"] == 1, "netlist_service launches")
+    require(out["encrypted_aes"]["ciphertext"] == FIPS197_C1[2], "encrypted_aes block")
+    require(out["encrypted_hmac"]["tag"] == hmac.new(bytes(range(32)), b"attested by csgn_tpu",
+                                                     "sha256").hexdigest(), "encrypted_hmac tag")
+    sp = out["sharded_pipeline"]
+    require(sp == {"devices": 1, "batch": 64, "product_chunks": 64 * 64, "parity": 0},
+            f"sharded_pipeline {sp}")
+    idle = [k for k in PROGRAMS_PATH if launches[k] == 0]
+    require(not idle, f"programs path never launched: {idle}")
+
+    print(f"[programs] Context({n},{d}): voting {MAIN_T} voters ({v['yes_votes']} yes, parity "
+          f"{v['parity']}, unanimous {v['unanimous']}); deep_chain {dc}; key_rotation fleet "
+          f"{FLEET} decrypts = bits; adder64 sum, netlist_service (one encrypt launch), AES-128 "
+          f"= FIPS-197 C.1, HMAC-SHA-256 = hmac; sharded_pipeline {sp}; validate FAILS: none; "
+          f"fault demo OK; {seconds:.3f} s host wall")
+    for i, t in enumerate(serve["trials"]):
+        print(f"[programs] serve_demo trial {i}: {serve['requests']} mul_decrypt requests "
+              f"per-request {t['per_request_ms']:.3f} ms, batched {t['batched_ms']:.3f} ms, "
+              f"speedup {t['speedup']:.3f}; {card}")
+    print(f"[programs] scaling_bench {json.dumps(scaling)}; {card}")
+    print(f"[programs] AES-128 {json.dumps(out['encrypted_aes'])}; HMAC "
+          f"{json.dumps(out['encrypted_hmac'])}")
+    print(f"[programs] host wall per step (s): {json.dumps(steps)}; whole phase {seconds:.3f} s")
+    print(f"[programs] launches {json.dumps({k: launches[k] for k in PROGRAMS_PATH})}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return launches, {"steps": steps, "seconds": seconds, "serve": serve, "scaling": scaling}
 
 
 def profile_path(label: str, run, warm: int) -> None:
@@ -1776,11 +1889,22 @@ def main() -> int:
     entry_launches, _ = entry_path(ctx, indices, rng, pgen)
     torch.cuda.empty_cache()
 
-    # Phase 4e: the sharded path at world size 1; its process group is
-    # destroyed before phase 5.
-    torch.cuda.reset_peak_memory_stats(dev)
-    shard_launches, _ = sharded_path(ctx, indices, rng, pgen, wide_perms, smi)
-    require(not torch.distributed.is_initialized(), "the process group outlived phase 4e")
+    # Phases 4e and 4f in one job of one rank over NCCL, destroyed before
+    # phase 5: the sharded path, then the user programs (sharded_pipeline
+    # and scaling_bench run in this job).
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    SHARD_DIR.mkdir(parents=True)
+    try:
+        job_dev = parallel.initialize(f"file://{SHARD_DIR / 'store'}", 1, 0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        shard_launches, _ = sharded_path(ctx, indices, rng, pgen, wide_perms, smi, job_dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        prog_launches, _ = programs_path(smi)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        shutil.rmtree(SHARD_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
 
     # Phase 5: timings.
@@ -1794,7 +1918,8 @@ def main() -> int:
 
     rows = []
     paths = (("main", main_launches), ("rotation", rot_launches), ("circuit", circ_launches),
-             ("entry", entry_launches), ("sharded", shard_launches))
+             ("entry", entry_launches), ("sharded", shard_launches),
+             ("programs", prog_launches))
     for tid, name, src, rep in KERNELS:
         by_path = {path: launches.get(name, 0) + launches.get(name + "_batched", 0)
                    for path, launches in paths}

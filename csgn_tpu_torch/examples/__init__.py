@@ -1,0 +1,35 @@
+"""Example programs of the port, one module each, run as
+``python -m csgn_tpu_torch.examples.<name> [--device cpu]``:
+
+  * `voting` — an encrypted ballot: parity by the ``+`` fold, unanimity by
+    `pipeline.mul_chain`;
+  * `deep_chain` — a multiplication chain kept bounded by key-side
+    `SecretKey.recrypt`;
+  * `key_rotation` — a fleet re-keyed under one permutation per element
+    (`CiphertextBatch.apply_permutations`);
+  * `bristol_adder` — 64-bit addition from the Bristol-format
+    ``tests/circuits/adder64.txt``, decrypted key-side;
+  * `netlist_service` — a sealed-bid comparison service: one batched encrypt
+    flush of `BatchExecutor`, `comparator_gt` netlists;
+  * `encrypted_aes` — AES-128 under encryption (FIPS-197 C.1);
+  * `encrypted_hmac` — HMAC-SHA-256 with an encrypted key (against hmac);
+  * `sharded_pipeline` — encrypt, square and decrypt over a mesh of ranks
+    (`csgn_tpu_torch.parallel`).
+
+Each is the JAX package's ``examples/<name>.py`` on the port: the same
+``main(...)`` arguments and returned dict, with integer seeds in place of JAX
+keys and a ``device`` argument (None: the current CUDA device; ``"cpu"``: the
+plain torch versions).  Keys come from a `torch.Generator` and encryption
+seeds from a numpy generator, both seeded by ``seed``, so the ciphertext words
+differ from the JAX examples'; every decrypted result is asserted against its
+plaintext expectation.
+"""
+
+import numpy as np
+
+__all__ = ["encrypt_seeds"]
+
+
+def encrypt_seeds(seed: int, k: int) -> list[int]:
+    """k encryption seeds drawn from an example's seed."""
+    return [int(s) for s in np.random.default_rng([seed, 0x5EED]).integers(0, 2**63, k)]

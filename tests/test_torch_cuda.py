@@ -11,7 +11,10 @@ exact: the kernels are integer code.
 
 import functools
 import json
+import os
 import pathlib
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -797,3 +800,26 @@ def test_sharded_ops_at_world_size_one_equal_the_unsharded_calls(dev, nccl_world
     back = cio.load_state_sharded(par_dir, mesh=mesh)
     assert torch.equal(back["prod"].wt, prod.wt) and back["prod"].wt.is_cuda
     assert dryrun.run(workdir=tmp_path)["parity"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The user programs on the card
+# ---------------------------------------------------------------------------
+
+
+def test_validate_sweep_and_fault_demo_resume_on_card(dev, capsys):
+    """The validate sweep at its full shapes, every kernel against its plain
+    version on the card, and the fault demo: two gloo ranks on the CPU, the
+    last killed mid-step, the resume on the card bit-equal to the oracle."""
+    from csgn_tpu_torch.tools import validate
+
+    assert validate.main() == 0
+    out = capsys.readouterr().out
+    assert out.strip().splitlines()[-1] == "FAILS: none" and "[plain]" not in out
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    res = subprocess.run([sys.executable, "-m", "csgn_tpu_torch.tools.fault_demo", "--nproc",
+                          "2"], cwd=repo, env=dict(os.environ, PYTHONPATH=str(repo)),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    assert "killed worker 1 of 2" in res.stdout and "fault demo: OK" in res.stdout
+    assert "on 1 rank (cuda:0): words_exact=True" in res.stdout

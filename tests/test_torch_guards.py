@@ -19,6 +19,12 @@ from csgn_tpu_torch.ops import permute_benes as pb
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CTX = Context(95, 4)
+# The user programs: python -m <module> [--device cpu].
+PROGRAMS = [f"csgn_tpu_torch.examples.{m}" for m in (
+    "voting", "deep_chain", "key_rotation", "bristol_adder", "netlist_service",
+    "encrypted_aes", "encrypted_hmac", "sharded_pipeline")] + [
+    f"csgn_tpu_torch.tools.{m}" for m in (
+        "validate", "serve_demo", "multihost_demo", "fault_demo", "scaling_bench")]
 
 
 def _run(args, **kw):
@@ -158,6 +164,42 @@ def test_entry_points_default_to_the_card():
         for call in calls:
             with pytest.raises(RuntimeError, match='pass device="cpu" to run on the CPU'):
                 call()
+
+
+def test_programs_pull_in_no_jax():
+    """The examples and tools import torch and numpy, never JAX or csgn_tpu."""
+    code = (
+        f"import importlib, sys; [importlib.import_module(m) for m in {PROGRAMS!r}]; "
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'csgn_tpu.')) "
+        "or m == 'csgn_tpu'); print(bad); sys.exit(1 if bad else 0)"
+    )
+    res = _run([sys.executable, "-c", code])
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_programs_default_to_the_card():
+    """Each program run as ``python -m`` without ``--device`` takes the
+    current CUDA device; without one it raises the "no CUDA device" error
+    before any work (and before starting any rank)."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py phase 4f runs the programs on it")
+    code = (
+        "import runpy, sys\n"
+        f"for m in {PROGRAMS!r}:\n"
+        "    sys.argv = [m]\n"
+        "    try:\n"
+        "        runpy.run_module(m, run_name='__main__', alter_sys=True)\n"
+        "    except RuntimeError as e:\n"
+        "        print(m, 'raised:', e)\n"
+        "    else:\n"
+        "        print(m, 'ran')\n"
+    )
+    res = _run([sys.executable, "-c", code])
+    assert res.returncode == 0, res.stdout + res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert len(lines) == len(PROGRAMS), res.stdout
+    for m, line in zip(PROGRAMS, lines):
+        assert line.startswith(f"{m} raised: ") and 'pass device="cpu"' in line, line
 
 
 def test_decrypt_batch_guards():
