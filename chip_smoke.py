@@ -10,7 +10,7 @@ once under `torch.profiler`, and prints each path's host wall, device busy
 time, idle share and heaviest kernels as [profile] lines.
 
 Phases, each printing lines tagged [device] / [build] / [check] / [main] /
-[rotate] / [circuit] / [entry] / [sharded] / [programs] / [time]:
+[rotate] / [circuit] / [entry] / [sharded] / [programs] / [bench] / [time]:
 
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: the CUDA kernels from csgn_tpu_torch/csrc, with the seconds taken,
@@ -78,6 +78,13 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      card); the multiply's
      aligned and unaligned modes, K3, K4, K7, K8 and K9 must be launched
      during it; then 4e's job is destroyed;
+  4g. the headline benchmark program, `csgn_tpu_torch.bench.run` in-process
+     on the card (the JAX package's bench.py on the port: fused mul+dec,
+     mul, dec and the anchor at 4096 x 4096 and 2^24 chunks, the Philox
+     encrypt, the Beneš rotation chain, serving and the AES-128 fleet), its
+     JSON line printed and held to value > 0, value_vs_anchor <= 1.05,
+     enc_suspect false and an AES rate > 0 (the program raises on a wrong
+     block); K1, K2, K3, K5, K7 and K8 must be launched during it;
   5. timings of each kernel and its plain version at the paths' shapes
      (CUDA events, warm-up, median of distinct inputs; nothing is asserted);
      the multiply's modes also against the aligned mode and today's
@@ -119,7 +126,7 @@ import numpy as np
 import torch
 
 from csgn_tpu_torch import (BatchExecutor, Ciphertext, CiphertextBatch, Context, Permutation,
-                            RunConfig, SecretKey, cli, models, parallel)
+                            RunConfig, SecretKey, bench, cli, models, parallel)
 from csgn_tpu_torch import io as cio
 from csgn_tpu_torch.circuit import lift
 from csgn_tpu_torch.layout import bit_positions_to_mask, words_from_numpy, words_to_numpy
@@ -235,6 +242,8 @@ SHARDED_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "encrypt_bits_cou
                 "apply_benes", "apply_benes_batch", "apply_benes_decrypt",
                 "mul_chunks_unaligned", "mul_decrypt_unaligned", "benes_lanes", "benes_wide",
                 "mul_chunks_batched", "decrypt_parity_batched")
+BENCH_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "fill_anchor", "encrypt_bits_philox",
+              "apply_benes")
 
 
 class SmokeFailure(RuntimeError):
@@ -1298,6 +1307,40 @@ def programs_path(card: str) -> tuple[dict, dict]:
     return launches, {"steps": steps, "seconds": seconds, "serve": serve, "scaling": scaling}
 
 
+# ---------------------------------------------------------------------------
+# Phase 4g: the headline benchmark program
+# ---------------------------------------------------------------------------
+
+
+def bench_path(card: str) -> tuple[dict, dict]:
+    """`csgn_tpu_torch.bench.run` on the card, in-process.  Its JSON line is
+    held to what a right run can read: value > 0, value_vs_anchor <= 1.05 (no
+    product is written faster than the fill of its shape), enc_suspect false
+    and an AES fleet rate > 0 (the program raises on a wrong block).
+    Returns (launches, the line)."""
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    line = bench.run(torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    print(f"[bench] {json.dumps(line)}")
+    require(line["value"] > 0, f"bench value {line['value']}")
+    require(line["value_vs_anchor"] <= 1.05,
+            f"bench value_vs_anchor {line['value_vs_anchor']} > 1.05: faster than the fill")
+    require(not line["enc_suspect"], "bench enc row above the card's write bound")
+    require(line["aes_fleet_blocks_per_s"] > 0, "bench AES fleet rate")
+    idle = [k for k in BENCH_PATH if launches[k] == 0]
+    require(not idle, f"bench path never launched: {idle}")
+    print(f"[bench] {seconds:.3f} s host wall; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; {card}")
+    return launches, line
+
+
 def profile_path(label: str, run, warm: int) -> None:
     """A path `warm` times warm (host wall), then once under torch.profiler:
     device busy time (the union of kernel intervals), idle share of the host
@@ -1907,6 +1950,11 @@ def main() -> int:
         shutil.rmtree(SHARD_DIR, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # Phase 4g: the headline benchmark program, outside 4e's job.
+    torch.cuda.reset_peak_memory_stats(dev)
+    bench_launches, _ = bench_path(smi)
+    torch.cuda.empty_cache()
+
     # Phase 5: timings.
     times = timings(ctx, sk, gen, dev, smi, p, stacked, bound)
     times.update(mode_timings(ctx, sk, gen, dev, smi, bound))
@@ -1919,7 +1967,7 @@ def main() -> int:
     rows = []
     paths = (("main", main_launches), ("rotation", rot_launches), ("circuit", circ_launches),
              ("entry", entry_launches), ("sharded", shard_launches),
-             ("programs", prog_launches))
+             ("programs", prog_launches), ("bench", bench_launches))
     for tid, name, src, rep in KERNELS:
         by_path = {path: launches.get(name, 0) + launches.get(name + "_batched", 0)
                    for path, launches in paths}

@@ -823,3 +823,39 @@ def test_validate_sweep_and_fault_demo_resume_on_card(dev, capsys):
     assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
     assert "killed worker 1 of 2" in res.stdout and "fault demo: OK" in res.stdout
     assert "on 1 rank (cuda:0): words_exact=True" in res.stdout
+
+
+# ---------------------------------------------------------------------------
+# The benchmark program on the card
+# ---------------------------------------------------------------------------
+
+
+def test_bench_program_on_card(dev, monkeypatch):
+    """`csgn_tpu_torch.bench.run` on the card: the keys of the JAX package's
+    bench.py line (read from its source), every guard passed (the program
+    raises otherwise) and readings a right run can give; then a wrong fused
+    parity is caught by the product guard."""
+    import ast
+
+    from csgn_tpu_torch import bench
+
+    line = bench.run(dev)
+    tree = ast.parse((pathlib.Path(__file__).resolve().parent.parent / "bench.py").read_text())
+    keys = next({k.value for k in node.keys} for node in ast.walk(tree)
+                if isinstance(node, ast.Dict)
+                and any(isinstance(k, ast.Constant) and k.value == "metric" for k in node.keys))
+    assert set(line) == keys
+    assert line["value"] > 0 and line["value_vs_anchor"] <= 1.05 and line["groups"] >= 4
+    assert line["enc_suspect"] is False and line["perm_block_c"] is None
+    assert line["aes_fleet_blocks_per_s"] > 0
+
+    right = kernels.mul_decrypt
+
+    def wrong(a, b, mask, **kw):
+        prod, parity = right(a, b, mask, **kw)
+        return prod, parity ^ 1
+
+    monkeypatch.setattr(kernels, "mul_decrypt", wrong)
+    with pytest.raises(bench.BenchFailure, match="fused parity"):
+        bench.check_product(_words(CTX, 16, 1, dev), _words(CTX, 256, 2, dev),
+                            _key(CTX, 3, dev).mask_words)

@@ -24,7 +24,8 @@ PROGRAMS = [f"csgn_tpu_torch.examples.{m}" for m in (
     "voting", "deep_chain", "key_rotation", "bristol_adder", "netlist_service",
     "encrypted_aes", "encrypted_hmac", "sharded_pipeline")] + [
     f"csgn_tpu_torch.tools.{m}" for m in (
-        "validate", "serve_demo", "multihost_demo", "fault_demo", "scaling_bench")]
+        "validate", "serve_demo", "multihost_demo", "fault_demo", "scaling_bench")] + [
+    "csgn_tpu_torch.bench"]
 
 
 def _run(args, **kw):
