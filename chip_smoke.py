@@ -14,8 +14,9 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
 
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: the CUDA kernels from csgn_tpu_torch/csrc, with the seconds taken,
-     and ptxas's registers and spill bytes of every Beneš and fill kernel (a
-     spill there fails the run) and of any other kernel that spills;
+     and ptxas's registers and spill bytes of every Beneš, fill and Philox
+     tile kernel (a spill there fails the run) and of any other kernel that
+     spills;
   3. each kernel against its plain torch version on the card, bit-exact, at
      small and ragged shapes and at the main path's full size: K1-K4, the
      Beneš kernels K8/K9/K12 at n in {20, 100, 1247, 2049, 4095, 8191,
@@ -25,8 +26,11 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      the wide kernel forced, and at n = 70000 on the wide kernel, over 1,000
      and 2^14 chunks (its global-scratch form forced at 20000),
      K1-K3 on batched [B, W, C] operands, the Philox encrypt K7 and its
-     stream dump K13 at batches {1, 255, 257, 2^22}, W in {3, 40, 128} and
-     d in {4, 16, 32}, and the write anchor K5 against torch.full;
+     stream dump K13 at batches {1, 127, 128, 129, 257, 2^22 - 3, 2^22}, W
+     in {3, 32, 40, 128} and one W past K7's tile path, d in {4, 16, 32},
+     and W = 32 through Context(1024, 16) (K7 also at col0 = 4099, and on
+     each of its paths forced at W in {32, 40, 128}), and the write anchor
+     K5 against torch.full;
   4. the main path through the public API at Context(1247, 16): key, two
      4096-bit encrypt batches, decrypt_batch / decrypt, the fused
      mul_and_decrypt over the 16.7 M-chunk product, ``*`` and ``+``; every
@@ -89,7 +93,8 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      (CUDA events, warm-up, median of distinct inputs; nothing is asserted);
      the multiply's modes also against the aligned mode and today's
      4-byte-store walk, and a sweep of b's size for the streaming threshold;
-     K7 against K4, the Beneš kernel K8 in turns with its wide kernel forced
+     K7 against K4 and K7's column path in turns with its tile path (both
+     forced), the Beneš kernel K8 in turns with its wide kernel forced
      at n = 1247; the lane-group path's K8 in turns with the wide kernel
      forced at n = 4095 over 2^20 chunks and at n = 20000 and 40000 over
      2^14 chunks, its K12 and K9; the wide kernel
@@ -158,9 +163,20 @@ AES_FLEET = 256                   # key-side netlist fleet
 FIPS197_C1 = ("000102030405060708090a0b0c0d0e0f", "00112233445566778899aabbccddeeff",
               "69c4e0d86a7b0430d8cdb78070b4c55a")
 
-# Phase 3's Philox grid, phase 4d's statistics size (the JAX tool's) and
-# scratch directory (gitignored).
-PHILOX_WS, PHILOX_DS, PHILOX_BATCHES = (3, 40, 128), (4, 16, 32), (1, 255, 257, ENC_BATCH)
+# Phase 3's Philox grid: W = 3 (rows W, W + 1 in two groups), 32 (n = 1023,
+# the valid mask's last bit clear; and Context(1024, 16), all ones), 40, 128
+# and one past K7's tile path (its column path); batches around the tile's
+# width, a full-size batch with batch % 4 != 0 (4-byte row stores) and one
+# with batch % 4 == 0 (16-byte row stores); each (W, d) also at col0 != 0,
+# and at W in PHILOX_BOTH_WS with each path forced.  Then phase 4d's
+# statistics size (the JAX tool's) and scratch directory (gitignored).
+PHILOX_TILE = encrypt_kernels.PHILOX_TILE_COLS
+PHILOX_WS = (3, 32, 40, 128, encrypt_kernels.PHILOX_TILE_MAX_WORDS + 4)
+PHILOX_DS = (4, 16, 32)
+PHILOX_BATCHES = (1, PHILOX_TILE - 1, PHILOX_TILE, PHILOX_TILE + 1, 257, ENC_BATCH - 3,
+                  ENC_BATCH)
+PHILOX_COL0 = 4099
+PHILOX_BOTH_WS = (32, 40, 128)
 STATS_CTX, STATS_BATCH, STATS_SEED = Context(4095, 32), 1 << 20, 424242
 WORKDIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
 SHARD_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_sharded"
@@ -177,8 +193,12 @@ SHARD_RING_T = (4099, 37)                 # t1 * t2 odd: the multiply's unaligne
 # Operations are counted per 32-bit lane as the algorithm needs them: a
 # threefry2x32 round 3 (add, funnel shift, xor) and a key injection 2, so
 # 72 a call; a Philox-4x32 round 4 (two 32x32 -> 64 multiplies, each one
-# IMAD.WIDE giving mul.hi and mul.lo, and two three-input xors; the key bumps
-# are uniform), so 40 a call; 3 per word of the fix-up.  A generator call is
+# IMAD.WIDE.U32 giving mul.hi and mul.lo, and two three-input LOP3 xors, as
+# the SASS of K7 shows: `csgn_tpu_torch.tools.k7_split --sass`; the key bumps
+# are uniform), so 40 a call; the fix-up 3 per word on the column paths (K4),
+# and on K7's tile path 4 per nonzero mask row (two for the row's address,
+# two LOP3: the test and the bit-1 OR) and 1 per row from the first valid word
+# that is not all ones (the rows reach the tile with no work).  A generator call is
 # counted once per stream row pair (threefry) or group (Philox), however
 # often a kernel evaluates it again.  A Beneš network costs 4 per nonzero
 # in-word mask word (two shifts, two three-input LOP3s) and 2 per nonzero
@@ -188,7 +208,7 @@ SHARD_RING_T = (4099, 37)                 # t1 * t2 odd: the multiply's unaligne
 # word (the missed key bits ORed together).
 HBM_BYTES_PER_S = 3.35e12
 SMS, INT32_LANES = 132, 64
-THREEFRY_OPS, PHILOX_OPS, FIXUP_OPS = 72, 40, 3
+THREEFRY_OPS, PHILOX_OPS, FIXUP_OPS, TILE_FIXUP_OPS = 72, 40, 3, 4
 
 MUL_CU = "csgn_tpu_torch/csrc/mul.cu"
 # One row per Pallas function: (TPU kernel, launch key of the kernel or mode
@@ -218,6 +238,7 @@ KERNELS = [
     ("K5", "fill_anchor", "csgn_tpu_torch/csrc/fill.cu", "csgn_tpu/ops/kernels.py:581"),
     ("K7", "encrypt_bits_philox", "csgn_tpu_torch/csrc/encrypt.cu",
      "csgn_tpu/ops/encrypt_pallas.py:47"),
+    ("K7c", "philox_column", "csgn_tpu_torch/csrc/encrypt.cu", "csgn_tpu/ops/encrypt_pallas.py:47"),
     ("K13", "philox_streams", "csgn_tpu_torch/csrc/encrypt.cu", "tools/enc_stats.py:49"),
 ]
 # The kernels each path must launch (LAUNCHES keys; "_batched" = the same
@@ -231,8 +252,8 @@ CIRCUIT_PATH = ("mul_chunks_unaligned", "mul_decrypt_unaligned", "mul_chunks_til
                 "mul_decrypt_tiled", "mul_chunks_unaligned_batched",
                 "mul_decrypt_unaligned_batched", "decrypt_parity_batched",
                 "encrypt_bits_counter", "apply_benes_batch")
-ENTRY_PATH = ("encrypt_bits_counter", "encrypt_bits_philox", "philox_streams", "fill_anchor",
-              "mul_chunks", "mul_decrypt", "mul_chunks_unaligned", "decrypt_parity",
+ENTRY_PATH = ("encrypt_bits_counter", "encrypt_bits_philox", "philox_tile", "philox_streams",
+              "fill_anchor", "mul_chunks", "mul_decrypt", "mul_chunks_unaligned", "decrypt_parity",
               "chunk_matches", "apply_benes")
 PROGRAMS_PATH = ("mul_chunks", "mul_chunks_unaligned", "mul_decrypt", "mul_decrypt_unaligned",
                  "mul_chunks_batched", "mul_decrypt_batched", "decrypt_parity",
@@ -243,7 +264,7 @@ SHARDED_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "encrypt_bits_cou
                 "mul_chunks_unaligned", "mul_decrypt_unaligned", "benes_lanes", "benes_wide",
                 "mul_chunks_batched", "decrypt_parity_batched")
 BENCH_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "fill_anchor", "encrypt_bits_philox",
-              "apply_benes")
+              "philox_tile", "apply_benes")
 
 
 class SmokeFailure(RuntimeError):
@@ -559,10 +580,10 @@ def check_benes_wide(gen, pgen, dev, errs: dict) -> dict:
     return perms
 
 
-def philox_operands(w: int, d: int, seed: int, dev):
-    """Key operands at any W: n = 32 W - 1 bits, d random secret positions
-    (W = 3 has no Context, W being even there: a raw 3-word mask)."""
-    n = 32 * w - 1
+def philox_operands(w: int, d: int, seed: int, dev, n: int | None = None):
+    """Key operands at any W: n = 32 W - 1 bits (or `n`), d random secret
+    positions (W = 3 has no Context, W being even there: a raw 3-word mask)."""
+    n = 32 * w - 1 if n is None else n
     idx = np.random.default_rng(seed).choice(n, d, replace=False).astype(np.int32)
     mask = bit_positions_to_mask(idx, n)[:w]
     valid = bit_positions_to_mask(np.arange(n), n)[:w]
@@ -571,32 +592,52 @@ def philox_operands(w: int, d: int, seed: int, dev):
 
 def check_philox(gen, dev, errs: dict) -> None:
     """K7 and K13 against their plain versions at every (W, d, batch) of the
-    grid; rows W and W + 1 straddle two Philox groups at W = 3.  K7 must
-    also equal the fix-up of K13's rows (the stream dump consumes exactly
-    K7's draws), round-trip and keep the padding bits zero."""
-    for w in PHILOX_WS:
-        for d in PHILOX_DS:
-            ops = philox_operands(w, d, w * 100 + d, dev)
-            for batch in PHILOX_BATCHES:
-                bits = torch.randint(0, 2, (batch,), dtype=torch.int32, device=dev, generator=gen)
-                seed = (SEED << 20) + batch
-                got = encrypt_kernels.encrypt_bits_philox(seed, bits, *ops)
-                e7 = max_abs_err(got, encrypt_kernels.encrypt_bits_philox_plain(seed, bits, *ops))
-                rows = encrypt_kernels.philox_streams(seed, batch, w + 2, dev)
-                e13 = max_abs_err(rows, encrypt_kernels.philox_streams_plain(
-                    seed, batch, w + 2, dev).to(torch.int32))
-                errs["encrypt_bits_philox"] = max(errs["encrypt_bits_philox"], e7)
-                errs["philox_streams"] = max(errs["philox_streams"], e13)
-                require(e7 == 0 and e13 == 0, f"K7/K13 disagree with plain at W={w} d={d} "
-                        f"batch={batch}")
-                require(torch.equal(encrypt_kernels.derive_words(
-                    rows.long() & M32, bits, *ops), got), "K7 != fix-up of K13's rows")
-                require(torch.equal(kernels.chunk_matches(got, ops[1]), bits),
-                        "Philox round trip failed")
-                require(not bool((got & ~ops[2][:, None]).any()), "padding bits set")
-                del got, rows, bits
-            print(f"[check] encrypt_bits_philox + philox_streams W={w} d={d} batches "
-                  f"{PHILOX_BATCHES}: bit-equal, K7 = fix-up of K13, round trip ok")
+    grid, and W = 32 through Context(1024, 16); K7 on the path its shape
+    takes, at col0 = 0 and PHILOX_COL0, and at PHILOX_BOTH_WS on each path
+    forced.  K7 must also equal the fix-up of K13's rows (the stream dump
+    consumes exactly K7's draws), round-trip and keep the padding bits
+    zero."""
+    ctx1024 = Context(1024, 16)
+    cases = [(w, d, philox_operands(w, d, w * 100 + d, dev)) for w in PHILOX_WS for d in PHILOX_DS]
+    cases.append((ctx1024.words32, ctx1024.d, SecretKey(ctx1024, np.random.default_rng(1024).choice(
+        ctx1024.n, ctx1024.d, replace=False), device=dev).encrypt_operands))
+    forced_paths = ("tile", "tile_4byte", "column")
+    for w, d, ops in cases:
+        for batch in PHILOX_BATCHES:
+            bits = torch.randint(0, 2, (batch,), dtype=torch.int32, device=dev, generator=gen)
+            seed = (SEED << 20) + batch
+            got = encrypt_kernels.encrypt_bits_philox(seed, bits, *ops)
+            e7 = max_abs_err(got, encrypt_kernels.encrypt_bits_philox_plain(seed, bits, *ops))
+            rows = encrypt_kernels.philox_streams(seed, batch, w + 2, dev)
+            e13 = max_abs_err(rows, encrypt_kernels.philox_streams_plain(
+                seed, batch, w + 2, dev).to(torch.int32))
+            at_col0 = encrypt_kernels.encrypt_bits_philox(seed, bits, *ops, col0=PHILOX_COL0)
+            e7 = max(e7, max_abs_err(at_col0, encrypt_kernels.encrypt_bits_philox_plain(
+                seed, bits, *ops, col0=PHILOX_COL0)))
+            by_path = {encrypt_kernels.philox_path(w, batch): e7}
+            if w in PHILOX_BOTH_WS and batch in (PHILOX_TILE + 1, ENC_BATCH):
+                for path in forced_paths:
+                    if path == "tile" and batch % 4:
+                        continue                  # 16-byte stores need batch % 4 == 0
+                    by_path[path] = max(by_path.get(path, 0), max_abs_err(
+                        encrypt_kernels._philox_cuda(seed, bits, *ops, path=path), got))
+            e7 = max(by_path.values())
+            errs["encrypt_bits_philox"] = max(errs["encrypt_bits_philox"], e7)
+            errs["philox_column"] = max(errs["philox_column"], by_path.get("column", 0))
+            errs["philox_streams"] = max(errs["philox_streams"], e13)
+            require(e7 == 0 and e13 == 0, f"K7/K13 disagree with plain at W={w} d={d} "
+                    f"batch={batch}")
+            require(torch.equal(encrypt_kernels.derive_words(
+                rows.long() & M32, bits, *ops), got), "K7 != fix-up of K13's rows")
+            require(torch.equal(kernels.chunk_matches(got, ops[1]), bits),
+                    "Philox round trip failed")
+            require(not bool((got & ~ops[2][:, None]).any()), "padding bits set")
+            del got, rows, bits, at_col0
+        path = encrypt_kernels.philox_path(w, ENC_BATCH)
+        both = " and each path forced" if w in PHILOX_BOTH_WS else ""
+        print(f"[check] encrypt_bits_philox + philox_streams W={w} d={d} batches "
+              f"{PHILOX_BATCHES} at col0 0 and {PHILOX_COL0} ({path} path at 2^22{both}): "
+              "bit-equal, K7 = fix-up of K13, round trip ok")
 
 
 def check_fill(dev, errs: dict) -> None:
@@ -1451,16 +1492,20 @@ def mul_bytes(w: int, t1: int, t2: int, batch: int = 1) -> int:
     return 4 * batch * w * (t1 + t2 + t1 * t2)
 
 
-def encrypt_ops(w: int, batch: int, engine: str) -> int:
+def encrypt_ops(w: int, batch: int, engine: str, mask=None, valid=None) -> int:
     """Integer operations of an encrypt of W = `w` words (or, with engine
-    "dump", of K13 over `w` rows) per the counts above: W + 2 stream rows."""
+    "dump", of K13 over `w` rows) per the counts above: W + 2 stream rows.
+    The Philox engine's fix-up counts the nonzero rows of `mask` and the
+    rows of `valid` (uint32 numpy words) from its first that is not all
+    ones."""
     if engine == "counter":       # one threefry call per pair of rows
-        calls, ops = (w + 3) // 2, THREEFRY_OPS
-    elif engine == "philox":      # one Philox call per group of four rows
-        calls, ops = -(-(w + 2) // 4), PHILOX_OPS
-    else:
-        return batch * -(-w // 4) * PHILOX_OPS
-    return batch * (calls * ops + FIXUP_OPS * w)
+        return batch * ((w + 3) // 2 * THREEFRY_OPS + FIXUP_OPS * w)
+    if engine == "philox":        # one Philox call per group of four rows
+        partial = np.flatnonzero(valid != M32)
+        masked = w - (int(partial[0]) if partial.size else w)
+        return batch * (-(-(w + 2) // 4) * PHILOX_OPS
+                        + TILE_FIXUP_OPS * int(np.count_nonzero(mask)) + masked)
+    return batch * -(-w // 4) * PHILOX_OPS
 
 
 def library_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1561,10 +1606,20 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked, bound) -> dic
                         lambda s: encrypt_kernels.encrypt_bits_philox_plain(s, *args), seeds)
     k7_ms, k4_ms = time_pair(lambda s: encrypt_kernels.encrypt_bits_philox(s, *args),
                              lambda s: encrypt_kernels.encrypt_bits_counter(s, *args), seeds)
+    k7_bound = bound(enc_bytes, encrypt_ops(w, ENC_BATCH, "philox", words_to_numpy(m),
+                                            ctx.valid_mask))
     report("encrypt_bits_philox", f"{w}x{ENC_BATCH}", w * ENC_BATCH * 4, ms, pms,
-           f", {ENC_BATCH / ms / 1e3:.1f} M enc/s; in turns with K4: K7 {k7_ms:.4f} ms, "
-           f"K4 {k4_ms:.4f} ms", bnd=bound(enc_bytes, encrypt_ops(w, ENC_BATCH, "philox")))
+           f", {ENC_BATCH / ms / 1e3:.1f} M enc/s, share {k7_bound['bound_ms'] / ms:.3f} of "
+           f"the bound on the {encrypt_kernels.philox_path(w, ENC_BATCH)} path; in turns with "
+           f"K4: K7 {k7_ms:.4f} ms, K4 {k4_ms:.4f} ms", bnd=k7_bound)
     out["encrypt_bits_philox"]["against_counter"] = {"philox_ms": k7_ms, "counter_ms": k4_ms}
+    col_ms, tile_ms = time_pair(
+        lambda s: encrypt_kernels._philox_cuda(s, *args, path="column"),
+        lambda s: encrypt_kernels._philox_cuda(s, *args, path="tile"), seeds)
+    report("philox_column", f"{w}x{ENC_BATCH}", w * ENC_BATCH * 4, col_ms, pms,
+           f" (K7's column path forced; in turns with the tile path forced: {tile_ms:.4f} ms)",
+           bnd=k7_bound)
+    out["philox_column"]["against_tile_ms"] = tile_ms
     fresh = [(encrypt_kernels.encrypt_bits_counter(s, *args),) for (s,) in seeds]
     ms, pms = time_pair(lambda x: kernels.chunk_matches(x, m),
                         lambda x: kernels.chunk_matches_plain(x, m), fresh)
@@ -1867,10 +1922,11 @@ def main() -> int:
     print(f"[build] {_build.library_path().name} from csgn_tpu_torch/csrc in "
           f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     resources = _build.kernel_resources()
-    watched = [r for r in resources if "benes_" in r["kernel"] or "fill_kernel" in r["kernel"]]
-    require(len(watched) == 31, f"ptxas reported {len(watched)} Beneš and fill kernels, "
-            "not 14 register + 10 lane-group + 6 wide + 1 fill")
-    for r in resources:  # every Beneš and fill kernel, and any other that spills
+    watched = [r for r in resources if any(
+        k in r["kernel"] for k in ("benes_", "fill_kernel", "philox_tile_kernel"))]
+    require(len(watched) == 33, f"ptxas reported {len(watched)} Beneš, fill and Philox tile "
+            "kernels, not 14 register + 10 lane-group + 6 wide + 1 fill + 2 tile")
+    for r in resources:  # every Beneš, fill and Philox tile kernel, and any other that spills
         spills = r["spill_stores"] or r["spill_loads"]
         if r in watched or spills:
             print(f"[build] {r['kernel']}: {r['registers']} registers, spill stores "

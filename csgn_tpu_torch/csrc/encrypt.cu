@@ -15,36 +15,60 @@
 //     (y0..y3) = philox4x32_10(ctr = (j, g, 0, 0), key = (seed_lo, seed_hi)),
 //     and stream row 4g + l is y_l.  The words depend only on (key, seed,
 //     bit, j), for any batch and any block size.
-//   * K13, the Philox stream dump: the K7 kernel storing every row of the
-//     stream raw (replaces the clone kernel of tools/enc_stats.py:49, which
-//     imitated K7's draws by hand; here it consumes them by construction).
+//   * K13, the Philox stream dump: every row of the stream raw (replaces the
+//     clone kernel of tools/enc_stats.py:49, which imitated K7's draws by
+//     hand; here it consumes them by construction).
 //
-// Both engines share one fix-up, `encrypt_column`, templated on the
-// generator, as _encrypt_derive (encrypt_pallas.py:193-214) does it: rows
-// [0, W) are the chunk words (& valid mask), row W picks the broken secret
-// index r = row[W] % d (unsigned), row W + 1 gives the bit-0 coin;
+// Both engines derive the words with one fix-up, as _encrypt_derive
+// (encrypt_pallas.py:193-214) does it: rows [0, W) are the chunk words
+// (& valid mask), row W picks the broken secret index r = row[W] % d
+// (unsigned), row W + 1 gives the bit-0 coin;
 //   bit 1: out = words | mask
 //   bit 0: the word holding secret position key[r] has that bit cleared, then
 //          set to the coin unless every other secret bit is already 1.
 //
 // Bound on the H100: K4 by its integer work (about 23 threefry calls of some
 // 70 operations per column at W = 40) more than by the W*4 bytes it writes
-// per column; K7 does 11 Philox calls of some 60 operations (mul.hi, mul.lo
-// and three-input xors) at W = 40, which puts it near the write bound; K13
-// writes R*4 bytes per column.  Design:
-//   * one thread per column, at global column j = col0 + its index (col0 is
-//     the first column of a rank's slice of a batch-sharded encrypt, so a
-//     rank's words are the one-device encrypt's columns [col0, col0 + batch));
-//   * the generator call(s) holding rows W and
-//     W + 1 run first, so r and the coin are known before the words are, and
-//     every word is stored once as it is generated (coalesced across the
-//     warp, row by row);
-//   * the secret position comes from a device table of key indices, not from
-//     the static unroll over d that Mosaic needed (encrypt_pallas.py:101-109);
-//   * the "other secret bits all one" test is accumulated on the fly; only
-//     the one word that holds key[r] is held in a register and stored last;
-//   * the key schedule stays in registers (the seed halves are kernel
-//     arguments; Philox's key bumps are constants).
+// per column; K7 by the W*4 bytes it writes (11 Philox calls a column at
+// W = 40, each round two IMAD.WIDE.U32 and two LOP3 in the SASS, take about
+// 0.8 of the write time on their own); K13 by the R*4 bytes it writes.
+//
+// K4 and K7's column path: one thread per column, at global column
+// j = col0 + its index (col0 is the first column of a rank's slice of a
+// batch-sharded encrypt), `encrypt_column` templated on the generator.  The
+// call(s) holding rows W and W + 1 run first, so r and the coin are known
+// before the words are; every word is stored to global memory as it is
+// generated (4 bytes a lane, coalesced across the warp, row by row), the
+// word holding key[r] last, once the "other secret bits all one" test is
+// known.
+//
+// K7's tile path (W <= kTileMaxWords), the one the port's widths take: a
+// block of kTileCols threads owns kTileCols consecutive columns.
+//   * Each thread generates its column as above, rows W and W + 1 first, and
+//     stores the rows raw into a shared tile [W][kTileCols], one row after
+//     another (a warp's 32 stores hit 32 banks): a row costs one shared
+//     store and no fix-up work;
+//   * the valid mask is applied to the rows from the first whose valid word
+//     is not all ones (at most two rows of a Context);
+//   * the fix-up is branch-free and runs over the nonzero mask rows only (at
+//     most d of W, compacted once a block): the "other secret bits" test
+//     and the bit-1 OR are two LOP3 a row.  A bit-0 column holds key[r]'s
+//     bit set in its tile word during the test, which leaves that bit out of
+//     it, then writes the broken word there: no 4-byte scatter reaches
+//     global memory;
+//   * after a barrier, the block writes each row of the tile as
+//     kTileCols * 4 contiguous bytes with streaming stores: 16-byte vector
+//     stores (st.global.cs.v4, as K5) when every row is 16-byte aligned
+//     (batch % 4 == 0), else 4-byte stores, a form the wrapper picks per
+//     launch and counts;
+//   * about ten blocks are resident on an SM (the tile's W * 4 bytes a
+//     column bound them), so one block's stores overlap the others'
+//     generation.  Past kTileMaxWords too few blocks fit an SM, and the
+//     column path serves.
+// The key schedule stays in registers (the seed halves are kernel
+// arguments; Philox's key bumps are constants); the secret position comes
+// from a device table of key indices, not from the static unroll over d
+// that Mosaic needed (encrypt_pallas.py:101-109).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -216,6 +240,131 @@ encrypt_kernel(const int32_t* __restrict__ bits, const int32_t* __restrict__ key
   }
 }
 
+// K7's tile path.  Shared memory (dynamic): the tile [w][kCols] of words,
+// then the nonzero mask rows as (row * kCols, mask word) pairs [<= w], then
+// the valid mask [w].
+template <int kCols>
+__host__ __device__ constexpr size_t tile_smem_bytes(int64_t w) {
+  return static_cast<size_t>(w) * (kCols + 3) * sizeof(uint32_t);
+}
+
+struct TileRows {
+  int full;  // rows [0, full) have an all-ones valid word
+  int nnz;   // nonzero mask rows
+};
+
+// Stage the mask and valid mask of a block's tile; every thread calls it,
+// and a barrier must follow before `tile_column`.  Warp 0 compacts the
+// nonzero mask rows and finds the first row whose valid word is not all
+// ones.
+template <int kCols>
+__device__ __forceinline__ void tile_stage(const uint32_t* __restrict__ mask,
+                                           const uint32_t* __restrict__ valid, int w,
+                                           uint2* nz, uint32_t* vs, TileRows* rows) {
+  const int t = threadIdx.x;
+  for (int r = t; r < w; r += kCols) vs[r] = valid[r];
+  if (t < 32) {
+    int nnz = 0, full = w;
+    for (int base = 0; base < w; base += 32) {
+      const int r = base + t;
+      const uint32_t m = r < w ? mask[r] : 0u;
+      const uint32_t nzb = __ballot_sync(~0u, m != 0);
+      const uint32_t part = __ballot_sync(~0u, r < w && valid[r] != ~0u);
+      if (m != 0) nz[nnz + __popc(nzb & ((1u << t) - 1))] = make_uint2(r * kCols, m);
+      nnz += __popc(nzb);
+      if (full == w && part) full = base + __ffs(part) - 1;
+    }
+    if (t == 0) *rows = TileRows{full, nnz};
+  }
+}
+
+// One thread's column of the tile (`col` = tile + its index): the stream's
+// rows as they come, the valid mask on rows [full, w), then the fix-up over
+// the nonzero mask rows only.  A bit-0 column carries key[r]'s bit set
+// during the test, which leaves that bit out of it, and the broken word last.
+template <int kCols>
+__device__ __forceinline__ void tile_column(const Philox& gen, uint32_t om,
+                                            const int32_t* __restrict__ key_idx, int64_t d,
+                                            const uint2* nz, const uint32_t* vs, TileRows rows,
+                                            int w, uint32_t* col) {
+  // Rows W and W + 1 first; the group holding row W also holds the last
+  // W % 4 words.
+  const int ga = w / 4, la = w % 4;
+  uint32_t ya[4], yb[4];
+  philox4x32_10(gen.j, static_cast<uint32_t>(ga), 0u, 0u, gen.k0, gen.k1, ya);
+  uint32_t row_w1;
+  if (la == 3) {  // rows W and W + 1 straddle two groups
+    philox4x32_10(gen.j, static_cast<uint32_t>(ga + 1), 0u, 0u, gen.k0, gen.k1, yb);
+    row_w1 = yb[0];
+  } else {
+    row_w1 = Philox::pick(ya, la + 1);
+  }
+  const int32_t pos = key_idx[Philox::pick(ya, la) % static_cast<uint32_t>(d)];
+  const int r_off = (pos >> 5) * kCols;
+  const uint32_t r_bit = 1u << (31 - (pos & 31));
+
+  for (int g = 0; g < ga; ++g) {
+    uint32_t y[4];
+    philox4x32_10(gen.j, static_cast<uint32_t>(g), 0u, 0u, gen.k0, gen.k1, y);
+#pragma unroll
+    for (int l = 0; l < 4; ++l) col[(4 * g + l) * kCols] = y[l];
+  }
+  for (int l = 0; l < la; ++l) col[(4 * ga + l) * kCols] = Philox::pick(ya, l);
+  for (int r = rows.full; r < w; ++r) col[r * kCols] &= vs[r];
+
+  const uint32_t held = col[r_off];
+  col[r_off] = held | (r_bit & ~om);
+  uint32_t bad = 0;  // the secret bits a bit-0 column has at 0, key[r]'s aside
+  for (int i = 0; i < rows.nnz; ++i) {
+    const uint2 e = nz[i];
+    const uint32_t x = col[e.x];
+    bad |= e.y & ~x;
+    col[e.x] = x | (e.y & om);
+  }
+  if (!om) col[r_off] = (held & ~r_bit) | ((bad != 0 && (row_w1 & 1u)) ? r_bit : 0u);
+}
+
+// kCols columns a block, one thread a column; kVec16 picks the 16-byte row
+// stores (batch % 4 == 0) over the 4-byte ones.
+template <int kCols, bool kVec16>
+__global__ void __launch_bounds__(kCols)
+philox_tile_kernel(const int32_t* __restrict__ bits, const int32_t* __restrict__ key_idx,
+                   const uint32_t* __restrict__ mask, const uint32_t* __restrict__ valid,
+                   uint32_t* __restrict__ out, int w, int64_t d, int64_t batch, int64_t col0,
+                   uint32_t k0, uint32_t k1) {
+  extern __shared__ uint4 sm_tile[];
+  uint32_t* tile = reinterpret_cast<uint32_t*>(sm_tile);
+  uint2* nz = reinterpret_cast<uint2*>(tile + w * kCols);
+  uint32_t* vs = reinterpret_cast<uint32_t*>(nz + w);
+  __shared__ TileRows rows;
+  tile_stage<kCols>(mask, valid, w, nz, vs, &rows);
+  __syncthreads();
+
+  const int t = threadIdx.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kCols;
+  const int64_t j = c0 + t;
+  const uint32_t om = (j < batch && (bits[j] & 1)) ? ~0u : 0u;  // all ones for bit 1
+  tile_column<kCols>(Philox{k0, k1, static_cast<uint32_t>(col0 + j)}, om, key_idx, d, nz, vs,
+                     rows, w, tile + t);
+  __syncthreads();
+
+  // Each row of the tile, contiguous.
+  const int64_t ncols = batch - c0 < kCols ? batch - c0 : kCols;
+  uint32_t* dst = out + c0;
+  if (kVec16) {
+    constexpr int kQuads = kCols / 4;  // 16-byte stores a row
+    const int q = t % kQuads;
+    if (4 * q < ncols) {
+      for (int row = t / kQuads; row < w; row += kCols / kQuads) {
+        __stcs(reinterpret_cast<uint4*>(dst + row * batch) + q,
+               reinterpret_cast<const uint4*>(tile + row * kCols)[q]);
+      }
+    }
+  } else if (t < ncols) {
+    for (int row = 0; row < w; ++row) __stcs(dst + row * batch + t, tile[row * kCols + t]);
+  }
+}
+
 // K13: every row of the Philox stream, raw.
 __global__ void __launch_bounds__(kThreads)
 philox_streams_kernel(uint32_t* __restrict__ out, int64_t rows, int64_t batch, uint32_t k0,
@@ -236,6 +385,9 @@ philox_streams_kernel(uint32_t* __restrict__ out, int64_t rows, int64_t batch, u
   }
 }
 
+constexpr int kTileCols = 128;
+constexpr int kTileMaxWords = 192;
+
 template <bool kPhilox>
 int launch_encrypt(const void* bits, const void* key_idx, const void* mask, const void* valid,
                    void* out, int64_t w, int64_t d, int64_t batch, int64_t col0,
@@ -254,6 +406,31 @@ int launch_encrypt(const void* bits, const void* key_idx, const void* mask, cons
   return cudaGetLastError();
 }
 
+template <int kCols, bool kVec16>
+int launch_philox_tile(const void* bits, const void* key_idx, const void* mask,
+                       const void* valid, void* out, int64_t w, int64_t d, int64_t batch,
+                       int64_t col0, int64_t seed_lo, int64_t seed_hi, void* stream) {
+  const int64_t blocks = (batch + kCols - 1) / kCols;
+  if (blocks > 0x7fffffff || d <= 0 || w < 1 || col0 < 0 ||
+      col0 + batch > (int64_t{1} << 32) ||
+      (kVec16 && (batch % 4 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0))) {
+    return cudaErrorInvalidConfiguration;
+  }
+  const size_t smem = tile_smem_bytes<kCols>(w);
+  const auto kernel = philox_tile_kernel<kCols, kVec16>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<static_cast<unsigned>(blocks), kCols, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(bits), static_cast<const int32_t*>(key_idx),
+      static_cast<const uint32_t*>(mask), static_cast<const uint32_t*>(valid),
+      static_cast<uint32_t*>(out), static_cast<int>(w), d, batch, col0,
+      static_cast<uint32_t>(seed_lo), static_cast<uint32_t>(seed_hi));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // bits int32 [batch], key_idx int32 [d], mask / valid uint32 [w] -> out [w, batch],
@@ -268,13 +445,28 @@ extern "C" int csgn_encrypt_counter(const void* bits, const void* key_idx, const
                                seed_hi, stream);
 }
 
-// The Philox engine, same arguments as csgn_encrypt_counter.
+// The Philox engine, the arguments of csgn_encrypt_counter and its path:
+// 0 the column path, 1 the tile path with 16-byte row stores (batch % 4 == 0
+// and `out` 16-byte aligned), 2 the tile path with 4-byte row stores (the
+// tile path takes w <= kTileMaxWords).
 extern "C" int csgn_encrypt_philox(const void* bits, const void* key_idx, const void* mask,
                                    const void* valid, void* out, int64_t w, int64_t d,
                                    int64_t batch, int64_t col0, int64_t seed_lo,
-                                   int64_t seed_hi, void* stream) {
-  return launch_encrypt<true>(bits, key_idx, mask, valid, out, w, d, batch, col0, seed_lo,
-                              seed_hi, stream);
+                                   int64_t seed_hi, int64_t path, void* stream) {
+  if (path != 0 && w > kTileMaxWords) return cudaErrorInvalidValue;
+  switch (path) {
+    case 0:
+      return launch_encrypt<true>(bits, key_idx, mask, valid, out, w, d, batch, col0,
+                                  seed_lo, seed_hi, stream);
+    case 1:
+      return launch_philox_tile<kTileCols, true>(bits, key_idx, mask, valid, out, w, d, batch,
+                                                 col0, seed_lo, seed_hi, stream);
+    case 2:
+      return launch_philox_tile<kTileCols, false>(bits, key_idx, mask, valid, out, w, d,
+                                                  batch, col0, seed_lo, seed_hi, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // out uint32 [rows, batch]: the Philox stream's rows, raw.  Returns

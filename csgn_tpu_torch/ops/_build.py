@@ -54,6 +54,12 @@ LAUNCHES = {
     "chunk_matches": 0,
     "encrypt_bits_counter": 0,
     "encrypt_bits_philox": 0,
+    # K7's launches by path (csrc/encrypt.cu), also counted under
+    # "encrypt_bits_philox": the tile path (W <= PHILOX_TILE_MAX_WORDS), of
+    # which those with 4-byte row stores (batch % 4 != 0), and the column path
+    "philox_tile": 0,
+    "philox_tile_4byte": 0,
+    "philox_column": 0,
     "philox_streams": 0,
     "fill_anchor": 0,
     # the same K1-K3 kernels launched on batched [B, W, C] operands
@@ -92,7 +98,9 @@ _SIGNATURES = {
     "csgn_benes": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # bits, key_idx, mask, valid, out, w, d, batch, col0, seed_lo, seed_hi, stream
     "csgn_encrypt_counter": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "csgn_encrypt_philox": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # ..., seed_hi, path (0 column, 1 tile with 16-byte stores, 2 tile with
+    # 4-byte stores), stream
+    "csgn_encrypt_philox": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # out, rows, batch, seed_lo, seed_hi, stream
     "csgn_philox_streams": (_P, _I, _I, _I, _I, _P),
     # out, value, w, c, stream

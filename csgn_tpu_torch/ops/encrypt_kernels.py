@@ -29,6 +29,15 @@ kernel's, whose draws depend on its ``block_b``.  The two engines share the
 invariants (canonical words, a bit-1 chunk matches the key, a bit-0 chunk
 does not), not the bits.
 
+K7 has two paths on the card, chosen by shape (`philox_path`), each
+counted under its own ``LAUNCHES`` key as well as ``encrypt_bits_philox``:
+the tile path for W <= `PHILOX_TILE_MAX_WORDS` (a block generates
+`PHILOX_TILE_COLS` columns into a shared tile, patches the broken secret
+bit there and writes each row contiguously: 16-byte stores when batch % 4
+== 0, ``"philox_tile"``, else 4-byte ones, also ``"philox_tile_4byte"``),
+and the column path above it (one thread a column storing straight to
+global memory, ``"philox_column"``).  Both write the same words.
+
 `philox_streams` (K13) is the Philox stream itself, every row and no fix-up:
 the counterpart of the clone kernel of tools/enc_stats.py, which had to
 imitate K7's draws by hand; here it is K7's kernel with every row stored.
@@ -63,11 +72,19 @@ __all__ = [
     "encrypt_bits_counter_plain",
     "encrypt_bits_philox",
     "encrypt_bits_philox_plain",
+    "philox_path",
+    "PHILOX_TILE_COLS",
+    "PHILOX_TILE_MAX_WORDS",
     "philox_streams",
     "philox_streams_plain",
 ]
 
 _M32 = 0xFFFFFFFF
+# K7's tile: columns a block (kTileCols in csrc/encrypt.cu) and the widest W
+# it takes (kTileMaxWords); the two must match the source.
+PHILOX_TILE_COLS = 128
+PHILOX_TILE_MAX_WORDS = 192
+_PHILOX_PATHS = {"column": 0, "tile": 1, "tile_4byte": 2}
 _TF_ROT = (13, 15, 26, 6, 17, 29, 16, 24)
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -229,20 +246,34 @@ def _check_encrypt_operands(name, bits, key_idx, mask, valid_mask, col0: int = 0
                          f"got col0={col0}")
 
 
+def philox_path(w: int, batch: int) -> str:
+    """K7's path on the card for W = `w` and `batch` columns: "tile" (16-byte
+    row stores), "tile_4byte" (4-byte row stores, batch % 4 != 0) or
+    "column" (W > `PHILOX_TILE_MAX_WORDS`)."""
+    if w > PHILOX_TILE_MAX_WORDS:
+        return "column"
+    return "tile" if batch % 4 == 0 else "tile_4byte"
+
+
 def _encrypt_cuda(name: str, entry: str, seed: int, bits, key_idx, mask, valid_mask,
-                  col0: int):
+                  col0: int, path: str | None = None):
     w, d, batch = mask.shape[0], key_idx.shape[0], bits.shape[0]
     out = torch.empty((w, batch), dtype=torch.int32, device=bits.device)
     if batch:
         bits32 = bits.to(torch.int32).contiguous()
         seed_lo, seed_hi = _seed_halves(seed)
+        extra = () if path is None else (_PHILOX_PATHS[path],)
         with torch.cuda.device(bits.device):
             check(name, getattr(lib(), entry)(
                 ptr(bits32), ptr(key_idx.contiguous()), ptr(mask.contiguous()),
                 ptr(valid_mask.contiguous()), ptr(out), w, d, batch, col0, seed_lo, seed_hi,
-                stream_of(bits),
+                *extra, stream_of(bits),
             ))
         LAUNCHES[name] += 1
+        if path is not None:
+            LAUNCHES["philox_column" if path == "column" else "philox_tile"] += 1
+            if path == "tile_4byte":
+                LAUNCHES["philox_tile_4byte"] += 1
     return out
 
 
@@ -270,14 +301,24 @@ def encrypt_bits_philox(seed: int, bits: torch.Tensor, key_idx: torch.Tensor,
     the stream's columns ``[col0, col0 + batch)``.
 
     Bit-equal to `encrypt_bits_philox_plain` for every batch size.  CPU
-    tensors take the plain version; CUDA tensors launch csrc/encrypt.cu or
-    raise.
+    tensors take the plain version; CUDA tensors launch csrc/encrypt.cu on
+    `philox_path`'s path or raise.
     """
     _check_encrypt_operands("encrypt_bits_philox", bits, key_idx, mask, valid_mask, col0)
     if bits.device.type == "cpu":
         return encrypt_bits_philox_plain(seed, bits, key_idx, mask, valid_mask, col0=col0)
-    return _encrypt_cuda("encrypt_bits_philox", "csgn_encrypt_philox", seed, bits,
-                         key_idx, mask, valid_mask, col0)
+    return _encrypt_cuda("encrypt_bits_philox", "csgn_encrypt_philox", seed, bits, key_idx,
+                         mask, valid_mask, col0, philox_path(mask.shape[0], bits.shape[0]))
+
+
+def _philox_cuda(seed: int, bits, key_idx, mask, valid_mask, *, path: str,
+                 col0: int = 0) -> torch.Tensor:
+    """K7 on the card on a forced `path`, for tests and timing.  The tile
+    paths refuse W > `PHILOX_TILE_MAX_WORDS` and "tile" refuses
+    batch % 4 != 0, with a CUDA error."""
+    _check_encrypt_operands("encrypt_bits_philox", bits, key_idx, mask, valid_mask, col0)
+    return _encrypt_cuda("encrypt_bits_philox", "csgn_encrypt_philox", seed, bits, key_idx,
+                         mask, valid_mask, col0, path)
 
 
 def philox_streams(seed: int, batch: int, rows: int, device=None) -> torch.Tensor:

@@ -10,7 +10,8 @@ figure is the ms per call of a run of five launches over distinct inputs
 after one untimed call (CUDA events), three runs a kernel:
 
   * ``encrypt``: K4 (counter engine) and K7 (Philox) at Context(1247, 16),
-    40 x 2^22;
+    40 x 2^22, K7 also on each of its paths forced (tile, column) where the
+    tree has them, and K13 (the Philox stream dump) at 130 x 2^20;
   * ``benes``: K8 on the register path at n = 1247 over 2^20 chunks, alone
     and right after its plain version;
   * ``benes-wide``: K8 and K12 on the wide path at n = 20000 over 2^14
@@ -65,9 +66,15 @@ def encrypt_times(dev) -> dict:
                          generator=torch.Generator(device=dev).manual_seed(1))
     args = (bits, *sk.encrypt_operands)
     seeds = list(range(1, 6))
-    return {name: [run_ms(fn, seeds) for _ in range(3)] for name, fn in (
+    out = {name: [run_ms(fn, seeds) for _ in range(3)] for name, fn in (
         ("k4", lambda s: encrypt_kernels.encrypt_bits_counter(s, *args)),
-        ("k7", lambda s: encrypt_kernels.encrypt_bits_philox(s, *args)))}
+        ("k7", lambda s: encrypt_kernels.encrypt_bits_philox(s, *args)),
+        ("k13", lambda s: encrypt_kernels.philox_streams(s, 1 << 20, 130, dev)))}
+    for path in ("tile", "column"):   # K7's paths, forced, where the tree has them
+        forced = getattr(encrypt_kernels, "_philox_cuda", None)
+        out[f"k7_{path}"] = "no forced paths in this tree" if forced is None else [
+            run_ms(lambda s: forced(s, *args, path=path), seeds) for _ in range(3)]
+    return out
 
 
 def benes_times(dev) -> dict:

@@ -144,8 +144,8 @@ def test_launch_counters_count_kernel_launches(dev):
     # serves it; the unaligned and tiled modes count under their own keys.
     # The Philox engine, its stream dump, the write anchor and the Beneš
     # kernel's lane-group and wide paths (n > 2048) are not called.
-    unused = ("encrypt_bits_philox", "philox_streams", "fill_anchor", "benes_lanes",
-              "benes_wide")
+    unused = ("encrypt_bits_philox", "philox_tile", "philox_tile_4byte", "philox_column",
+              "philox_streams", "fill_anchor", "benes_lanes", "benes_wide")
     for name in before:
         want = before[name] + (0 if name in unused or name.endswith((
             "_unaligned", "_tiled", "_unaligned_batched", "_tiled_batched")) else 1)
@@ -501,6 +501,65 @@ def test_philox_k7_k13_match_plain(dev, w, d, batch):
     want = encrypt_kernels.philox_streams_plain(seed, batch, w + 2, dev).to(torch.int32)
     assert torch.equal(rows, want)
     assert torch.equal(encrypt_kernels.derive_words(rows.long() & 0xFFFFFFFF, bits, *ops), got)
+
+
+PHILOX_T = encrypt_kernels.PHILOX_TILE_COLS
+PHILOX_WIDE = encrypt_kernels.PHILOX_TILE_MAX_WORDS + 4     # past the tile path: the column path
+
+
+def _philox_key_operands(w, n, dev):
+    """W = 32 at n = 1024 through a Context (all-ones valid mask); else raw
+    operands at n = 32 W - 1."""
+    if n == 1024:
+        ctx = Context(n, 16)
+        return SecretKey(ctx, np.random.default_rng(n).choice(n, 16, replace=False),
+                         dev).encrypt_operands
+    return _philox_operands(w, 16, dev, w * 100 + 16)
+
+
+@pytest.mark.parametrize("w,n", [(32, 1023), (32, 1024), (40, 1247), (128, 4095),
+                                 (PHILOX_WIDE, 32 * PHILOX_WIDE - 1)])
+@pytest.mark.parametrize("batch", [PHILOX_T - 1, PHILOX_T, PHILOX_T + 1, 2 * PHILOX_T + 3, 4096])
+@pytest.mark.parametrize("col0", [0, 5])
+def test_philox_k7_paths_match_plain(dev, w, n, batch, col0):
+    """K7 on the path its shape takes (16-byte or 4-byte tile row stores, or
+    the column path past the tile's width) at the tile's edges and past
+    them, counted under that path."""
+    ops = _philox_key_operands(w, n, dev)
+    bits = torch.from_numpy(np.random.default_rng(batch + col0).integers(0, 2, batch)).to(dev)
+    seed = (0xBADC0DE << 32) | (batch + col0)
+    path = encrypt_kernels.philox_path(w, batch)
+    key = {"tile": "philox_tile", "tile_4byte": "philox_tile_4byte", "column": "philox_column"}
+    before = dict(encrypt_kernels.LAUNCHES)
+    got = encrypt_kernels.encrypt_bits_philox(seed, bits, *ops, col0=col0)
+    assert encrypt_kernels.LAUNCHES[key[path]] == before[key[path]] + 1
+    assert torch.equal(got, encrypt_kernels.encrypt_bits_philox_plain(seed, bits, *ops,
+                                                                      col0=col0))
+    assert not (got & ~ops[2][:, None]).any()
+
+
+@pytest.mark.parametrize("w", [32, 40, 128])
+@pytest.mark.parametrize("batch", [PHILOX_T + 1, 4096, 1 << 20])
+def test_philox_k7_forced_paths_agree(dev, w, batch):
+    """Each path of K7 forced at a W that all take writes the plain words."""
+    ops = _philox_key_operands(w, 32 * w - 1, dev)
+    bits = torch.from_numpy(np.random.default_rng(w).integers(0, 2, batch)).to(dev)
+    want = encrypt_kernels.encrypt_bits_philox_plain(77, bits, *ops)
+    for path in ("tile", "tile_4byte", "column"):
+        if path == "tile" and batch % 4:
+            continue                             # 16-byte row stores need batch % 4 == 0
+        assert torch.equal(encrypt_kernels._philox_cuda(77, bits, *ops, path=path), want), path
+
+
+def test_philox_k7_tile_refuses_shapes_it_cannot_take(dev):
+    ops = _philox_key_operands(40, 1247, dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        encrypt_kernels._philox_cuda(1, torch.ones(7, dtype=torch.int32, device=dev), *ops,
+                                     path="tile")
+    wide = _philox_key_operands(PHILOX_WIDE, 32 * PHILOX_WIDE - 1, dev)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        encrypt_kernels._philox_cuda(1, torch.ones(8, dtype=torch.int32, device=dev), *wide,
+                                     path="tile_4byte")
 
 
 def test_philox_engine_through_the_key_on_card_equals_cpu(dev):

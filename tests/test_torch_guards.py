@@ -45,7 +45,8 @@ def test_import_pulls_in_no_jax():
         "csgn_tpu_torch.models.circuits, csgn_tpu_torch.models.linear, "
         "csgn_tpu_torch.models.lookup, csgn_tpu_torch.cli, csgn_tpu_torch.config, "
         "csgn_tpu_torch.io, csgn_tpu_torch.utils.timing, csgn_tpu_torch.utils.checks, "
-        "csgn_tpu_torch.tools.enc_stats, csgn_tpu_torch.rng, csgn_tpu_torch.refcompat, "
+        "csgn_tpu_torch.tools.enc_stats, csgn_tpu_torch.tools.ab_times, "
+        "csgn_tpu_torch.tools.k7_split, csgn_tpu_torch.rng, csgn_tpu_torch.refcompat, "
         "csgn_tpu_torch.parallel, csgn_tpu_torch.parallel.mesh, "
         "csgn_tpu_torch.parallel.multihost, csgn_tpu_torch.parallel.ops, "
         "csgn_tpu_torch.parallel.batch_ops, csgn_tpu_torch.parallel.dryrun; "
