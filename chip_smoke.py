@@ -14,9 +14,9 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
 
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: the CUDA kernels from csgn_tpu_torch/csrc, with the seconds taken,
-     and ptxas's registers and spill bytes of every Beneš, fill and Philox
-     tile kernel (a spill there fails the run) and of any other kernel that
-     spills;
+     and ptxas's registers and spill bytes of every Beneš, fill, Philox
+     tile and K14 kernel (a spill there fails the run) and of any other
+     kernel that spills;
   3. each kernel against its plain torch version on the card, bit-exact, at
      small and ragged shapes and at the main path's full size: K1-K4, the
      Beneš kernels K8/K9/K12 at n in {20, 100, 1247, 2049, 4095, 8191,
@@ -29,12 +29,19 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      stream dump K13 at batches {1, 127, 128, 129, 257, 2^22 - 3, 2^22}, W
      in {3, 32, 40, 128} and one W past K7's tile path, d in {4, 16, 32},
      and W = 32 through Context(1024, 16) (K7 also at col0 = 4099, and on
-     each of its paths forced at W in {32, 40, 128}), and the write anchor
-     K5 against torch.full;
-  4. the main path through the public API at Context(1247, 16): key, two
-     4096-bit encrypt batches, decrypt_batch / decrypt, the fused
-     mul_and_decrypt over the 16.7 M-chunk product, ``*`` and ``+``; every
-     kernel of this path must be launched during it;
+     each of its paths forced at W in {32, 40, 128}), the JAX package's
+     default encrypt engine K14 at W in {3, 32, 40, 128}, d in {4, 16, 32},
+     batches {1, 127, 128, 129, 2^22 - 3, 2^22}, each at col0 = 0 and at
+     col0 = 4099 of a batch + 4099-column encrypt, and at Context(1247, 16)'s
+     key over 2^22 columns, the port's rng against a table of JAX's draws
+     (`RNG_VECTORS`), and the write anchor K5 against torch.full;
+  4. the main path through the public API at Context(1247, 16), as the JAX
+     CLI's demo derives its keys (``split(key(SEED), 4)``): the secret key
+     (JAX's indices), two 4096-bit encrypt batches on the default engine
+     (K14; their words' sha-256 JAX's) and one on the counter engine (K4),
+     decrypt_batch / decrypt, the fused mul_and_decrypt over the 16.7
+     M-chunk product, ``*`` and ``+``; every kernel of this path must be
+     launched during it;
   4b. the key-rotation path at Context(1247, 16): phase 4's product permuted,
      decrypted under the permuted key, permuted back; then a fleet of 64
      128-chunk ciphertexts, multiplied into [64, 40, 16384], decrypted,
@@ -46,7 +53,8 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
   4c. the circuit and serving path at Context(1247, 16): a multiplication
      chain (4099 x 37, then x 111, fused with the decrypt), a 1021 x 16411
      product and a 16 x 2^19 product (b beyond L2), each with `*` and
-     `mul_and_decrypt`; a `BatchExecutor` fleet of 64 16-bit adders
+     `mul_and_decrypt`; a `BatchExecutor` (on ``rng.key(SEED)``, its
+     flushes on the default engine) fleet of 64 16-bit adders
      (materialized, one group launch) and 256 AES-128 blocks (key-side
      route; request 0 is FIPS-197 C.1), with groups of every other submit_*
      route; the multiply's unaligned and b-streamed modes must be launched
@@ -61,7 +69,8 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      2^20 columns; every kernel of this path must be launched during it;
   4e. the sharded path (`csgn_tpu_torch.parallel`) in-process in a job of
      one rank over NCCL, Context(1247, 16): a 4096 x 4096 `sharded_mul_decrypt`
-     (parity 1 = chunk_matches), `sharded_mul_ring` and
+     (parity 1 = chunk_matches) of operands from the key forms of
+     `sharded_encrypt_bits` and `sharded_encrypt_bits_invariant` (K14), `sharded_mul_ring` and
      `sharded_mul_allgather` at 4099 x 37 (the unaligned mode), a
      `sharded_permute` of 2^20 chunks, `mul_chain_sharded_decrypt` on 4099 x
      37 x 111, a checkpoint written from the ranks and resumed onto the mesh,
@@ -94,7 +103,7 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      the multiply's modes also against the aligned mode and today's
      4-byte-store walk, and a sweep of b's size for the streaming threshold;
      K7 against K4 and K7's column path in turns with its tile path (both
-     forced), the Beneš kernel K8 in turns with its wide kernel forced
+     forced), K14 at 40 x 2^22 with its share of the bound, the Beneš kernel K8 in turns with its wide kernel forced
      at n = 1247; the lane-group path's K8 in turns with the wide kernel
      forced at n = 4095 over 2^20 chunks and at n = 20000 and 40000 over
      2^14 chunks, its K12 and K9; the wide kernel
@@ -116,7 +125,9 @@ from __future__ import annotations
 
 import argparse
 import functools
+import hashlib
 import hmac
+import itertools
 import json
 import operator
 import os
@@ -133,6 +144,7 @@ import torch
 from csgn_tpu_torch import (BatchExecutor, Ciphertext, CiphertextBatch, Context, Permutation,
                             RunConfig, SecretKey, bench, cli, models, parallel)
 from csgn_tpu_torch import io as cio
+from csgn_tpu_torch import rng as prng
 from csgn_tpu_torch.circuit import lift
 from csgn_tpu_torch.layout import bit_positions_to_mask, words_from_numpy, words_to_numpy
 from csgn_tpu_torch.models import netlist as nl
@@ -206,6 +218,9 @@ SHARD_RING_T = (4099, 37)                 # t1 * t2 odd: the multiply's unaligne
 # the plan timed (`benes_kernels.network_ops`, per plan for K9), per chunk:
 # 2,022 on a random plan at n = 1247.  K12 adds one LOP3 per nonzero key
 # word (the missed key bits ORed together).
+# K14 makes one threefry call a word and three more a column (randint's two
+# draws and the coin), with the column paths' fix-up: (W + 3) * 72 + 3 W
+# operations a column, 3,216 at W = 40.
 HBM_BYTES_PER_S = 3.35e12
 SMS, INT32_LANES = 132, 64
 THREEFRY_OPS, PHILOX_OPS, FIXUP_OPS, TILE_FIXUP_OPS = 72, 40, 3, 4
@@ -240,31 +255,91 @@ KERNELS = [
      "csgn_tpu/ops/encrypt_pallas.py:47"),
     ("K7c", "philox_column", "csgn_tpu_torch/csrc/encrypt.cu", "csgn_tpu/ops/encrypt_pallas.py:47"),
     ("K13", "philox_streams", "csgn_tpu_torch/csrc/encrypt.cu", "tools/enc_stats.py:49"),
+    # No pallas_call: the JAX package's default engine, XLA code under jax.jit.
+    ("K14", "encrypt_bits_threefry", "csgn_tpu_torch/csrc/encrypt.cu",
+     "csgn_tpu/ops/core.py:132"),
 ]
 # The kernels each path must launch (LAUNCHES keys; "_batched" = the same
 # kernel on [B, W, C] operands, reported in its kernel's row).
 MAIN_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "chunk_matches",
-             "encrypt_bits_counter")
+             "encrypt_bits_threefry", "encrypt_bits_counter")
 ROTATION_PATH = ("apply_benes", "apply_benes_batch", "apply_benes_decrypt", "decrypt_parity",
                  "mul_chunks_batched", "mul_decrypt_batched", "decrypt_parity_batched",
                  "encrypt_bits_counter")
 CIRCUIT_PATH = ("mul_chunks_unaligned", "mul_decrypt_unaligned", "mul_chunks_tiled",
                 "mul_decrypt_tiled", "mul_chunks_unaligned_batched",
                 "mul_decrypt_unaligned_batched", "decrypt_parity_batched",
-                "encrypt_bits_counter", "apply_benes_batch")
-ENTRY_PATH = ("encrypt_bits_counter", "encrypt_bits_philox", "philox_tile", "philox_streams",
+                "encrypt_bits_counter", "encrypt_bits_threefry", "apply_benes_batch")
+ENTRY_PATH = ("encrypt_bits_threefry", "encrypt_bits_counter", "encrypt_bits_philox", "philox_tile", "philox_streams",
               "fill_anchor", "mul_chunks", "mul_decrypt", "mul_chunks_unaligned", "decrypt_parity",
               "chunk_matches", "apply_benes")
 PROGRAMS_PATH = ("mul_chunks", "mul_chunks_unaligned", "mul_decrypt", "mul_decrypt_unaligned",
                  "mul_chunks_batched", "mul_decrypt_batched", "decrypt_parity",
-                 "decrypt_parity_batched", "chunk_matches", "encrypt_bits_counter",
+                 "decrypt_parity_batched", "chunk_matches", "encrypt_bits_threefry",
                  "encrypt_bits_philox", "apply_benes", "apply_benes_batch")
 SHARDED_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "encrypt_bits_counter",
+                "encrypt_bits_threefry",
                 "apply_benes", "apply_benes_batch", "apply_benes_decrypt",
                 "mul_chunks_unaligned", "mul_decrypt_unaligned", "benes_lanes", "benes_wide",
                 "mul_chunks_batched", "decrypt_parity_batched")
 BENCH_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "fill_anchor", "encrypt_bits_philox",
-              "philox_tile", "apply_benes")
+              "philox_tile", "encrypt_bits_threefry", "apply_benes")
+
+# JAX's draws, from jax.random on the CPU (JAX 0.9.0, partitionable threefry;
+# tests/test_torch_jax_random.py holds them to jax.random): phase 3 holds the
+# port's rng to RNG_VECTORS (`rng_vectors(SEED)`), and phase 4's secret key
+# and its two encrypt batches' words (sha-256, the first 32 hex digits) must
+# be what the JAX package draws from jax.random.split(jax.random.key(SEED), 4)
+# as its CLI's demo does: the key from keys[0], the batches from keys[1] and
+# keys[2] on the default engine.
+RNG_VECTORS = {
+    "key_data": [0, 20261016],
+    "split": [[202623531, 735280029], [3252887076, 734064994], [1821268157, 2867172126]],
+    "fold_in_7": [2138856170, 644651993],
+    "bits": [[666939830, 3928223558, 3328953251, 990424313],
+             [96083914, 2316963648, 2561000205, 1494270259]],
+    "randint_16": [12, 11, 9, 4, 2, 14, 10, 5],
+    "randint_2p31m1": [1623753116, 115300587, 380645385, 281154532],
+    "bernoulli": [1, 0, 1, 1, 1, 1, 1, 1],
+    "permutation_16": [1, 3, 2, 6, 0, 5, 14, 11, 9, 8, 4, 12, 7, 15, 10, 13],
+    "permutation_1247_head": [295, 1036, 630, 716, 232, 1122, 827, 317, 868, 125, 44, 475],
+}
+MAIN_KEY_INDICES = [250, 25, 807, 727, 849, 795, 916, 51, 1146, 1193, 203, 414, 366, 997, 141,
+                    360]
+MAIN_WORDS_SHA256 = ("d8052a3c658141cec08ff496258c894b", "861b8eec60fd8c40a520f7cecc0856b5")
+# What the JAX examples draw at their default seeds: voting's yes votes of
+# MAIN_T voters, netlist_service's reserve and qualified bids (8 bids of 16
+# bits); neither depends on the Context.
+VOTING_YES = 3670
+AUCTION = (6899, [1, 1, 1, 1, 0, 1, 1, 0])
+
+
+def rng_vectors(seed: int) -> dict:
+    """`RNG_VECTORS`' draws, from the port's rng."""
+    k = prng.key(seed)
+    data = lambda key: prng.key_data(key).tolist()  # noqa: E731
+    return {
+        "key_data": data(k),
+        "split": [data(x) for x in prng.split(k, 3)],
+        "fold_in_7": data(prng.fold_in(k, 7)),
+        "bits": prng.bits(k, (2, 4)).tolist(),
+        "randint_16": prng.randint(k, (8,), 0, 16).tolist(),
+        "randint_2p31m1": prng.randint(k, (4,), 0, 2**31 - 1).tolist(),
+        "bernoulli": prng.bernoulli(k, 0.9, (8,)).astype(int).tolist(),
+        "permutation_16": prng.permutation(k, 16).tolist(),
+        "permutation_1247_head": prng.permutation(k, 1247)[:12].tolist(),
+    }
+
+
+def key_stream(seed: int):
+    """Fresh keys ``fold_in(rng.key(seed), i)``, i = 0, 1, ...: the host
+    draws of the phases' permutations and Beneš keys."""
+    base = prng.key(seed)
+    return (prng.fold_in(base, i) for i in itertools.count())
+
+
+def words_sha256(words: torch.Tensor) -> str:
+    return hashlib.sha256(np.ascontiguousarray(words_to_numpy(words)).tobytes()).hexdigest()[:32]
 
 
 class SmokeFailure(RuntimeError):
@@ -468,7 +543,7 @@ def _benes_errs(errs: dict, path: str, e: int) -> None:
         errs[key] = max(errs[key], e)
 
 
-def check_benes(gen, pgen, dev, errs: dict) -> None:
+def check_benes(gen, pkeys, dev, errs: dict) -> None:
     """K8 / K12 at every (n, C), K9 at every (n, k, C), against their plain
     versions; K12 with matches forced into every 5th column.  n > 2048 takes
     the lane-group path, the others the register path; at n = 1247 and 2^20
@@ -476,8 +551,8 @@ def check_benes(gen, pgen, dev, errs: dict) -> None:
     saw_parity_one = False
     for n in BENES_NS:
         ctx = Context(n, min(16, n // 2))
-        sk = SecretKey(ctx, torch.randperm(n, generator=pgen)[:ctx.d].numpy(), device=dev)
-        p = Permutation.random(n, pgen)
+        sk = SecretKey(ctx, core.keygen(next(pkeys), n, ctx.d).numpy(), device=dev)
+        p = Permutation.random(n, next(pkeys))
         plan = p.benes_plan()
         path = benes_kernels.benes_path(plan.words_pad)
         require(path == ("lanes" if n > 2048 else "register"), f"n={n} routed to {path}")
@@ -516,7 +591,7 @@ def check_benes(gen, pgen, dev, errs: dict) -> None:
                   f"bit-equal, count {int(count)} parity {int(parity)}{extra}")
             del x, out, want_out
         for k in (1, 3, FLEET) if n in FLEET_NS else (1, 3):
-            perms = [Permutation.random(n, pgen) for _ in range(k)]
+            perms = [Permutation.random(n, next(pkeys)) for _ in range(k)]
             stacked = pb.stack_plans([q.benes_plan() for q in perms])
             sizes = (1, 129, 1025) + ((1 << 14,) if k == FLEET else ())
             for chunks in sizes:
@@ -532,7 +607,7 @@ def check_benes(gen, pgen, dev, errs: dict) -> None:
     require(saw_parity_one, "no K12 case had parity 1")
 
 
-def check_benes_wide(gen, pgen, dev, errs: dict) -> dict:
+def check_benes_wide(gen, pkeys, dev, errs: dict) -> dict:
     """K8 / K12 / K9 past 16384 bits against their plain versions at
     WIDE_NS, over 1,000 (not a multiple of a block's chunks) and WIDE_CHUNKS
     chunks: routed (the lane-group path up to n = 65536, the wide kernel
@@ -542,9 +617,9 @@ def check_benes_wide(gen, pgen, dev, errs: dict) -> dict:
     perms = {}
     for n in WIDE_NS:
         ctx = Context(n, 16)
-        sk = SecretKey(ctx, torch.randperm(n, generator=pgen)[:ctx.d].numpy(), device=dev)
+        sk = SecretKey(ctx, core.keygen(next(pkeys), n, ctx.d).numpy(), device=dev)
         t0 = time.perf_counter()
-        p, q, r = (Permutation.random(n, pgen) for _ in range(3))
+        p, q, r = (Permutation.random(n, next(pkeys)) for _ in range(3))
         plan, stacked = p.benes_plan(), pb.stack_plans([q.benes_plan(), r.benes_plan()])
         route_s = time.perf_counter() - t0
         perms[n] = (p, q, r)
@@ -640,6 +715,52 @@ def check_philox(gen, dev, errs: dict) -> None:
               "bit-equal, K7 = fix-up of K13, round trip ok")
 
 
+THREEFRY_WS = (3, 32, 40, 128)
+THREEFRY_BATCHES = (1, PHILOX_TILE - 1, PHILOX_TILE, PHILOX_TILE + 1, ENC_BATCH - 3, ENC_BATCH)
+PLAIN_SLICE = 1 << 20     # columns a call of K14's plain version (its int64 temporaries)
+
+
+def threefry_plain(key, bits, ops, col0: int, total: int) -> torch.Tensor:
+    """K14's plain version on the card, `PLAIN_SLICE` columns a call (the
+    slices are the whole encrypt's columns, as the plain version's col0 and
+    total define them)."""
+    return torch.cat([encrypt_kernels.encrypt_bits_threefry_plain(
+        key, bits[i:i + PLAIN_SLICE], *ops, col0=col0 + i, total=total)
+        for i in range(0, bits.shape[0], PLAIN_SLICE)], dim=1)
+
+
+def check_threefry(ctx, sk, gen, dev, errs: dict) -> None:
+    """The port's rng against JAX's table, then K14 against its plain
+    version at every (W, d, batch) of the grid, at col0 = 0 (B = batch) and
+    col0 = PHILOX_COL0 (B = batch + PHILOX_COL0), and at Context(1247, 16)'s
+    key over 2^22 columns; round trip and padding bits zero."""
+    got = rng_vectors(SEED)
+    require(got == RNG_VECTORS, f"rng draws differ from JAX's: {got}")
+    print(f"[check] rng key/split/fold_in/bits/randint/bernoulli/permutation at key({SEED}): "
+          "equal to JAX's table")
+    cases = [(w, d, philox_operands(w, d, w * 1000 + d, dev), THREEFRY_BATCHES)
+             for w in THREEFRY_WS for d in PHILOX_DS]
+    cases.append((ctx.words32, ctx.d, sk.encrypt_operands, (ENC_BATCH,)))
+    for w, d, ops, batches in cases:
+        for batch in batches:
+            bits = torch.randint(0, 2, (batch,), dtype=torch.int32, device=dev, generator=gen)
+            key = prng.key((SEED << 24) + batch * 64 + w)
+            for col0 in (0, PHILOX_COL0):
+                out = encrypt_kernels.encrypt_bits_threefry(key, bits, *ops, col0=col0,
+                                                            total=batch + col0)
+                e14 = max_abs_err(out, threefry_plain(key, bits, ops, col0, batch + col0))
+                errs["encrypt_bits_threefry"] = max(errs["encrypt_bits_threefry"], e14)
+                require(e14 == 0, f"K14 disagrees with plain at W={w} d={d} batch={batch} "
+                        f"col0={col0}")
+                require(torch.equal(kernels.chunk_matches(out, ops[1]), bits),
+                        "K14 round trip failed")
+                require(not bool((out & ~ops[2][:, None]).any()), "K14 padding bits set")
+                del out
+            del bits
+        print(f"[check] encrypt_bits_threefry W={w} d={d} batches {batches} at col0 0 and "
+              f"{PHILOX_COL0}: bit-equal, round trip ok, padding zero")
+
+
 def check_fill(dev, errs: dict) -> None:
     """K5 against torch.full: the headline product's shape, a C % 4 != 0
     product, and small ragged shapes."""
@@ -665,7 +786,11 @@ def odd_bits(rng: np.random.Generator, n: int) -> np.ndarray:
     return bits
 
 
-def main_path(ctx, indices, rng, dev) -> tuple[dict, Ciphertext]:
+def main_path(ctx, keys, rng, dev) -> tuple[dict, Ciphertext]:
+    """The JAX CLI demo's flow at full size: ``keys = split(key(SEED), 4)``,
+    the secret key from keys[0], two 4096-bit batches on the default engine
+    (K14) under keys[1] and keys[2], then decrypts, the fused product, ``*``
+    and ``+``; and one counter-engine batch (K4) of the first batch's bits."""
     bits1, bits2 = odd_bits(rng, MAIN_T), odd_bits(rng, MAIN_T)
     xor1, xor2 = int(bits1.sum() % 2), int(bits2.sum() % 2)
     for name in kernels.LAUNCHES:
@@ -673,44 +798,57 @@ def main_path(ctx, indices, rng, dev) -> tuple[dict, Ciphertext]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
 
-    sk = SecretKey(ctx, indices, device=dev)
-    c1 = Ciphertext(sk.encrypt_batch(bits1, SEED + 1), ctx)
-    c2 = Ciphertext(sk.encrypt_batch(bits2, SEED + 2), ctx)
+    sk = SecretKey.generate(ctx, keys[0], device=dev)
+    c1 = Ciphertext(sk.encrypt_batch(bits1, keys[1]), ctx)
+    c2 = Ciphertext(sk.encrypt_batch(bits2, keys[2]), ctx)
+    c3 = Ciphertext(sk.encrypt_batch(bits1, SEED + 1), ctx)     # the counter engine
     dec1 = sk.decrypt_batch(c1.wt).cpu().numpy()
     dec2 = sk.decrypt_batch(c2.wt).cpu().numpy()
+    dec3 = sk.decrypt_batch(c3.wt).cpu().numpy()
     d1, d2 = int(sk.decrypt(c1)), int(sk.decrypt(c2))
     prod, p = sk.mul_and_decrypt(c1, c2)
     dprod = int(sk.decrypt(prod))
     prod2 = c1 * c2
     same = torch.equal(prod.wt, prod2.wt)
     dsum = int(sk.decrypt(c1 + c2))
+    dsum3 = int(sk.decrypt(c1 + c3))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
 
-    require(np.array_equal(dec1, bits1) and np.array_equal(dec2, bits2),
-            "decrypt_batch != encrypted bits")
+    require(sk.indices.tolist() == MAIN_KEY_INDICES, f"secret key {sk.indices.tolist()} is not "
+            f"JAX's {MAIN_KEY_INDICES}")
+    sha = (words_sha256(c1.wt), words_sha256(c2.wt))
+    require(sha == MAIN_WORDS_SHA256, f"encrypt words (sha-256 {sha}) are not JAX's "
+            f"{MAIN_WORDS_SHA256}")
+    require(np.array_equal(dec1, bits1) and np.array_equal(dec2, bits2)
+            and np.array_equal(dec3, bits1), "decrypt_batch != encrypted bits")
     require((d1, d2) == (xor1, xor2) == (1, 1), f"decrypt {d1},{d2} != xor {xor1},{xor2}")
     require(int(p) == (xor1 & xor2) == 1, f"mul_and_decrypt parity {int(p)} != 1")
     require(dprod == int(p), "decrypt(prod) != mul_and_decrypt parity")
     require(same, "mul_and_decrypt product != c1 * c2")
-    require(dsum == xor1 ^ xor2, "decrypt(c1 + c2) != xor1 ^ xor2")
+    require(dsum == xor1 ^ xor2 and dsum3 == 0, "decrypt(c1 + c2) != xor1 ^ xor2 or "
+            "decrypt(c1 + c3) != 0")
     require(tuple(prod.wt.shape) == (ctx.words32, MAIN_T * MAIN_T), "product shape")
     require(max_abs_err(prod.wt, core.mul_chunks(c1.wt, c2.wt)) == 0,
             "product != plain cross-product on the card")
     idle = [k for k in MAIN_PATH if launches[k] == 0]
     require(not idle, f"main path never launched: {idle}")
-    print(f"[main] Context({ctx.n},{ctx.d}) W={ctx.words32}: 2 x {MAIN_T}-bit encrypt, "
+    print(f"[main] Context({ctx.n},{ctx.d}) W={ctx.words32}: secret key from "
+          f"split(key({SEED}), 4)[0] = JAX's; 2 x {MAIN_T}-bit encrypt on the default engine "
+          f"(words = JAX's, sha-256 {sha[0]} {sha[1]}) + 1 on the counter engine, "
           f"product {MAIN_T * MAIN_T} chunks ({prod.nbytes / 1e9:.2f} GB); "
           f"decrypt(c1)={d1} decrypt(c2)={d2} mul_and_decrypt={int(p)} "
-          f"decrypt(prod)={dprod} decrypt(c1+c2)={dsum}; {seconds:.3f} s host wall")
+          f"decrypt(prod)={dprod} decrypt(c1+c2)={dsum} decrypt(c1+c3)={dsum3}; "
+          f"{seconds:.3f} s host wall")
     print(f"[main] launches {json.dumps(launches)}; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
 
     # A small prefix against the CPU path (held to csgn_tpu by the CPU tests):
-    # counters are global, so the first 64 columns do not depend on the batch.
-    cpu_sk = SecretKey(ctx, indices, device="cpu")
-    cpu_c1 = cpu_sk.encrypt_batch(bits1[:64], SEED + 1)
+    # the first 64 columns of the 4096-column encrypt.
+    cpu_sk = SecretKey(ctx, sk.indices, device="cpu")
+    cpu_c1 = encrypt_kernels.encrypt_bits_threefry(
+        keys[1], torch.from_numpy(bits1[:64]), *cpu_sk.encrypt_operands, total=MAIN_T)
     require(np.array_equal(words_to_numpy(c1.wt[:, :64]), words_to_numpy(cpu_c1)),
             "card encrypt != CPU encrypt on the first 64 columns")
     print("[main] first 64 encrypted columns equal the CPU path's")
@@ -820,10 +958,10 @@ def _columns(words: torch.Tensor, ctx) -> list:
     return [Ciphertext(cols[k], ctx) for k in range(cols.shape[0])]
 
 
-def circuit_setup(ctx, pgen) -> dict:
+def circuit_setup(ctx, pkeys) -> dict:
     """Host set-up of phase 4c: the netlists and the permutations' plans."""
     t0 = time.perf_counter()
-    perms = [Permutation.random(ctx, pgen) for _ in range(8)]
+    perms = [Permutation.random(ctx, next(pkeys)) for _ in range(8)]
     for q in perms:
         q.benes_plan()
     setup = {"adder": nl.adder(ADDER_BITS), "aes": models.aes128(), "perms": perms}
@@ -884,7 +1022,7 @@ def circuit_path(ctx, indices, setup: dict, rng, dev) -> tuple[dict, dict]:
         del c1, c2, prod, prod2
 
     # 4. BatchExecutor, materialized route: 64 16-bit adders in one group.
-    ex = BatchExecutor(sk, seed=SEED)
+    ex = BatchExecutor(sk, rng=prng.key(SEED))
     adder = setup["adder"]
     bits = (adder_in[:, :, None] >> np.arange(ADDER_BITS)) & 1          # [64, 2, 16]
     wires = _columns(sk.encrypt_batch(bits.reshape(-1), SEED + 400), ctx)
@@ -951,7 +1089,7 @@ def circuit_path(ctx, indices, setup: dict, rng, dev) -> tuple[dict, dict]:
     enc = [f.result() for f in enc_futs]
     require(np.array_equal(sk.decrypt_batch(CiphertextBatch.stack(enc)).cpu().numpy(),
                            enc_bits), "serve encrypts do not decrypt to their bits")
-    ex2 = BatchExecutor(sk, seed=SEED)
+    ex2 = BatchExecutor(sk, rng=prng.key(SEED))
     again = [ex2.submit_encrypt(int(b)) for b in enc_bits]
     require(all(torch.equal(x.wt, y.result().wt) for x, y in zip(enc, again)),
             "serve encrypts are not reproducible from the seed")
@@ -987,7 +1125,7 @@ def circuit_path(ctx, indices, setup: dict, rng, dev) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 
-def entry_path(ctx, indices, rng, pgen) -> tuple[dict, dict]:
+def entry_path(ctx, indices, rng, pkeys) -> tuple[dict, dict]:
     """The CLI's commands in-process, the Philox engine through the key, a
     checkpoint round trip in both formats, and the encrypt statistics; no
     device is named anywhere, so each lands on the current CUDA device.
@@ -1005,7 +1143,7 @@ def entry_path(ctx, indices, rng, pgen) -> tuple[dict, dict]:
     enc_bits = rng.integers(0, 2, ENC_BATCH).astype(np.int32)
     mul_bits = [odd_bits(rng, MAIN_T), odd_bits(rng, MAIN_T)]
     chain_bits = [odd_bits(rng, t) for t in CHAIN_T[:2]]
-    perm = Permutation.random(ctx, pgen)
+    perm = Permutation.random(ctx, next(pkeys))
     perm.benes_plan()
     for name in kernels.LAUNCHES:
         kernels.LAUNCHES[name] = 0
@@ -1082,7 +1220,7 @@ def entry_path(ctx, indices, rng, pgen) -> tuple[dict, dict]:
 # ---------------------------------------------------------------------------
 
 
-def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str, dev) -> tuple[dict, dict]:
+def sharded_path(ctx, indices, rng, pkeys, wide_perms, card: str, dev) -> tuple[dict, dict]:
     """`csgn_tpu_torch.parallel` in-process at world size 1 over NCCL, in the
     job `main` opened on `dev` (a ``file://`` store in the gitignored build
     directory, SHARD_DIR): the headline fused
@@ -1102,7 +1240,7 @@ def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str, dev) -> tuple[d
     wide_bits, big_bits = odd_bits(rng, WIDE_CHUNKS), odd_bits(rng, 1000)
     wp, wq, wr = wide_perms[LANES_N]
     bp = wide_perms[WIDE_N][0]
-    perm = Permutation.random(ctx, pgen)
+    perm = Permutation.random(ctx, next(pkeys))
     perm.benes_plan()
     require(torch.distributed.get_backend() == "nccl", "the process group is not NCCL")
     for name in kernels.LAUNCHES:
@@ -1117,11 +1255,16 @@ def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str, dev) -> tuple[d
     m = sk.mask_words
     ops = sk.encrypt_operands
 
-    # The headline: a 4096 x 4096 fused product, sharded.
-    c1, c2 = (parallel.sharded_encrypt_bits(SEED + 800 + i, torch.from_numpy(b).to(dev), *ops,
-                                            ctx.n, ctx.d, mesh) for i, b in enumerate(
-                                                (bits1, bits2)))
-    enc_ok = torch.equal(c1, sk.encrypt_batch(bits1, SEED + 800))
+    # The headline: a 4096 x 4096 fused product, sharded; its operands from
+    # the key forms of both sharded encrypts (K14): the per-rank stream
+    # fold_in(key, rank) and the mesh-invariant one.
+    k1, k2 = prng.key(SEED + 800), prng.key(SEED + 801)
+    c1 = parallel.sharded_encrypt_bits(k1, torch.from_numpy(bits1).to(dev), *ops, ctx.n, ctx.d,
+                                       mesh)
+    c2 = parallel.sharded_encrypt_bits_invariant(k2, torch.from_numpy(bits2).to(dev), *ops,
+                                                 ctx.n, ctx.d, mesh)
+    enc_ok = (torch.equal(c1, sk.encrypt_batch(bits1, prng.fold_in(k1, 0)))
+              and torch.equal(c2, sk.encrypt_batch(bits2, k2)))
     prod, parity = _timed(steps, f"sharded_mul_decrypt {MAIN_T}x{MAIN_T}",
                           lambda: parallel.sharded_mul_decrypt(c1, c2, m, mesh))
     oracle = int(core.chunk_matches(prod, m).sum() & 1)
@@ -1192,7 +1335,7 @@ def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str, dev) -> tuple[d
 
     # The Beneš kernel's lane-group path at n = LANES_N and its wide
     # kernel at n = WIDE_N, through the public API.
-    wsk = SecretKey(wctx, torch.randperm(LANES_N, generator=pgen)[:16].numpy())
+    wsk = SecretKey(wctx, core.keygen(next(pkeys), LANES_N, 16).numpy())
     wct = Ciphertext(wsk.encrypt_batch(wide_bits, SEED + 840), wctx)
     wrot = wct.apply_permutation(wp)
     d_wide = int(wsk.apply_permutation(wp).decrypt(wrot))
@@ -1200,7 +1343,7 @@ def sharded_path(ctx, indices, rng, pgen, wide_perms, card: str, dev) -> tuple[d
     wrot2 = wfleet.apply_permutations([wq, wr])
     wfused, wcount = benes_kernels.apply_benes_decrypt(
         wct.wt, wp.benes_plan(), wsk.apply_permutation(wp).mask_words, return_count=True)
-    bsk = SecretKey(bctx, torch.randperm(WIDE_N, generator=pgen)[:16].numpy())
+    bsk = SecretKey(bctx, core.keygen(next(pkeys), WIDE_N, 16).numpy())
     bct = Ciphertext(bsk.encrypt_batch(big_bits, SEED + 841), bctx)
     brot = bct.apply_permutation(bp)
     d_big = int(bsk.apply_permutation(bp).decrypt(brot))
@@ -1261,7 +1404,8 @@ def programs_path(card: str) -> tuple[dict, dict]:
     the card).  The fault demo, most of it process start-up, runs beside the
     examples and the sweep, and is waited for before the two timed programs
     (serve_demo, scaling_bench).  Each example checks its own decrypts; this
-    phase also holds their draw-independent results.  Returns (launches,
+    phase also holds their results that the JAX examples fix (the CPU tests
+    hold every key of them to the JAX examples').  Returns (launches,
     results)."""
     n, d = 1247, 16
     root = pathlib.Path(__file__).resolve().parent
@@ -1320,7 +1464,11 @@ def programs_path(card: str) -> tuple[dict, dict]:
             f"deep_chain {dc}")
     require(kr["fleet"] == FLEET and kr["decrypted"] == kr["expected"], f"key_rotation {kr}")
     require(out["bristol_adder"]["sum"] == 123456789 + 987654321, "bristol_adder sum")
-    require(out["netlist_service"]["encrypt_dispatches"] == 1, "netlist_service launches")
+    ns = out["netlist_service"]
+    require(ns["encrypt_dispatches"] == 1 and (ns["reserve"], ns["qualified"]) == AUCTION,
+            f"netlist_service {ns}: launches, or not the JAX example's auction {AUCTION}")
+    require(v["yes_votes"] == VOTING_YES, f"voting drew {v['yes_votes']} yes votes, the JAX "
+            f"example {VOTING_YES}")
     require(out["encrypted_aes"]["ciphertext"] == FIPS197_C1[2], "encrypted_aes block")
     require(out["encrypted_hmac"]["tag"] == hmac.new(bytes(range(32)), b"attested by csgn_tpu",
                                                      "sha256").hexdigest(), "encrypted_hmac tag")
@@ -1494,12 +1642,15 @@ def mul_bytes(w: int, t1: int, t2: int, batch: int = 1) -> int:
 
 def encrypt_ops(w: int, batch: int, engine: str, mask=None, valid=None) -> int:
     """Integer operations of an encrypt of W = `w` words (or, with engine
-    "dump", of K13 over `w` rows) per the counts above: W + 2 stream rows.
+    "dump", of K13 over `w` rows) per the counts above: W + 2 stream rows
+    (K14: W words and three draws a column).
     The Philox engine's fix-up counts the nonzero rows of `mask` and the
     rows of `valid` (uint32 numpy words) from its first that is not all
     ones."""
     if engine == "counter":       # one threefry call per pair of rows
         return batch * ((w + 3) // 2 * THREEFRY_OPS + FIXUP_OPS * w)
+    if engine == "threefry":      # K14: one threefry call per word, three more a column
+        return batch * ((w + 3) * THREEFRY_OPS + FIXUP_OPS * w)
     if engine == "philox":        # one Philox call per group of four rows
         partial = np.flatnonzero(valid != M32)
         masked = w - (int(partial[0]) if partial.size else w)
@@ -1620,6 +1771,14 @@ def timings(ctx, sk, gen, dev, card: str, p: Permutation, stacked, bound) -> dic
            f" (K7's column path forced; in turns with the tile path forced: {tile_ms:.4f} ms)",
            bnd=k7_bound)
     out["philox_column"]["against_tile_ms"] = tile_ms
+    # K14, the JAX package's default engine, under distinct keys.
+    keys = [(prng.key(SEED + k),) for k in range(1, REPS + 1)]
+    ms, pms = time_pair(lambda k: encrypt_kernels.encrypt_bits_threefry(k, *args),
+                        lambda k: encrypt_kernels.encrypt_bits_threefry_plain(k, *args), keys)
+    k14_bound = bound(enc_bytes, encrypt_ops(w, ENC_BATCH, "threefry"))
+    report("encrypt_bits_threefry", f"{w}x{ENC_BATCH}", w * ENC_BATCH * 4, ms, pms,
+           f", {ENC_BATCH / ms / 1e3:.1f} M enc/s, share {k14_bound['bound_ms'] / ms:.3f} of "
+           "the bound", bnd=k14_bound)
     fresh = [(encrypt_kernels.encrypt_bits_counter(s, *args),) for (s,) in seeds]
     ms, pms = time_pair(lambda x: kernels.chunk_matches(x, m),
                         lambda x: kernels.chunk_matches_plain(x, m), fresh)
@@ -1708,7 +1867,7 @@ def _forced(name, plan, path, key=None, stride=0):
     return lambda x: benes_kernels._benes_cuda(name, x, plan, stride, key, path=path)[0]
 
 
-def lane_timings(gen, pgen, dev, card: str, wide_perms, bound) -> dict:
+def lane_timings(gen, pkeys, dev, card: str, wide_perms, bound) -> dict:
     """The Beneš kernel past 2048 bits.  The lane-group path's K8 in turns
     with the wide kernel forced (at n = 4095 over 2^20 chunks, at LANES_N
     and n = 40000 over WIDE_CHUNKS chunks); its K12 and K9 (four plans over
@@ -1722,10 +1881,10 @@ def lane_timings(gen, pgen, dev, card: str, wide_perms, bound) -> dict:
                            (40000, WIDE_CHUNKS, "wide"), (WIDE_N, WIDE_CHUNKS, "global")):
         ctx = Context(n, 16)
         p, q, r = wide_perms[n] if n in wide_perms else (
-            Permutation.random(n, pgen) for _ in range(3))
+            Permutation.random(n, next(pkeys)) for _ in range(3))
         plan = p.benes_plan()
         path = benes_kernels.benes_path(plan.words_pad)
-        sk = SecretKey(ctx, torch.randperm(n, generator=pgen)[:ctx.d].numpy(), device=dev)
+        sk = SecretKey(ctx, core.keygen(next(pkeys), n, ctx.d).numpy(), device=dev)
         key = sk.apply_permutation(p).mask_words
         w = ctx.words32
         xs = [(canon_words(ctx, (w, chunks), gen, dev),) for _ in range(REPS)]
@@ -1923,10 +2082,10 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     resources = _build.kernel_resources()
     watched = [r for r in resources if any(
-        k in r["kernel"] for k in ("benes_", "fill_kernel", "philox_tile_kernel"))]
-    require(len(watched) == 33, f"ptxas reported {len(watched)} Beneš, fill and Philox tile "
-            "kernels, not 14 register + 10 lane-group + 6 wide + 1 fill + 2 tile")
-    for r in resources:  # every Beneš, fill and Philox tile kernel, and any other that spills
+        k in r["kernel"] for k in ("benes_", "fill_kernel", "philox_tile_kernel", "JaxThreefry"))]
+    require(len(watched) == 34, f"ptxas reported {len(watched)} Beneš, fill, Philox tile and "
+            "K14 kernels, not 14 register + 10 lane-group + 6 wide + 1 fill + 2 tile + 1 K14")
+    for r in resources:  # every Beneš, fill, Philox tile and K14 kernel, and any other that spills
         spills = r["spill_stores"] or r["spill_loads"]
         if r in watched or spills:
             print(f"[build] {r['kernel']}: {r['registers']} registers, spill stores "
@@ -1934,33 +2093,35 @@ def main() -> int:
         require(r not in watched or not spills, f"{r['kernel']} spills")
 
     ctx = Context(1247, 16)
+    keys = prng.split(prng.key(SEED), 4)     # jax.random.split(jax.random.key(SEED), 4)
+    indices = core.keygen(keys[0], ctx.n, ctx.d).numpy()
     rng = np.random.default_rng(SEED)
-    indices = rng.choice(ctx.n, ctx.d, replace=False)
     sk = SecretKey(ctx, indices, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    pgen = torch.Generator().manual_seed(SEED)  # permutations are drawn on the host
+    pkeys = key_stream(SEED)  # permutations and Beneš keys are drawn on the host
 
     # Phase 3: kernels vs plain.
     errs = dict.fromkeys([name for _, name, _, _ in KERNELS], 0)
     check_kernels(ctx, sk, gen, dev, errs)
     check_batched(ctx, sk, gen, dev, errs)
     check_modes(ctx, sk, gen, dev, errs)
-    check_benes(gen, pgen, dev, errs)
-    wide_perms = check_benes_wide(gen, pgen, dev, errs)
+    check_benes(gen, pkeys, dev, errs)
+    wide_perms = check_benes_wide(gen, pkeys, dev, errs)
     check_philox(gen, dev, errs)
+    check_threefry(ctx, sk, gen, dev, errs)
     check_fill(dev, errs)
     torch.cuda.synchronize()
 
     # Phase 4: the main path.
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    main_launches, prod = main_path(ctx, indices, rng, dev)
+    main_launches, prod = main_path(ctx, keys, rng, dev)
     torch.cuda.empty_cache()
 
     # Phase 4b: the key-rotation path.  Host routing of the plans is set-up.
-    p = Permutation.random(ctx, pgen)
-    perms = [Permutation.random(ctx, pgen) for _ in range(FLEET)]
+    p = Permutation.random(ctx, next(pkeys))
+    perms = [Permutation.random(ctx, next(pkeys)) for _ in range(FLEET)]
     t0 = time.perf_counter()
     stacked = pb.stack_plans([q.benes_plan() for q in perms])
     p.benes_plan()
@@ -1975,7 +2136,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # Phase 4c: the circuit and serving path.  Netlists and plans are set-up.
-    setup = circuit_setup(ctx, pgen)
+    setup = circuit_setup(ctx, pkeys)
     torch.cuda.reset_peak_memory_stats(dev)
     circ_launches, _ = circuit_path(ctx, indices, setup, rng, dev)
     if args.profile:
@@ -1985,7 +2146,7 @@ def main() -> int:
 
     # Phase 4d: the entry points, on their default device.
     torch.cuda.reset_peak_memory_stats(dev)
-    entry_launches, _ = entry_path(ctx, indices, rng, pgen)
+    entry_launches, _ = entry_path(ctx, indices, rng, pkeys)
     torch.cuda.empty_cache()
 
     # Phases 4e and 4f in one job of one rank over NCCL, destroyed before
@@ -1996,7 +2157,7 @@ def main() -> int:
     try:
         job_dev = parallel.initialize(f"file://{SHARD_DIR / 'store'}", 1, 0)
         torch.cuda.reset_peak_memory_stats(dev)
-        shard_launches, _ = sharded_path(ctx, indices, rng, pgen, wide_perms, smi, job_dev)
+        shard_launches, _ = sharded_path(ctx, indices, rng, pkeys, wide_perms, smi, job_dev)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         prog_launches, _ = programs_path(smi)
@@ -2014,7 +2175,7 @@ def main() -> int:
     # Phase 5: timings.
     times = timings(ctx, sk, gen, dev, smi, p, stacked, bound)
     times.update(mode_timings(ctx, sk, gen, dev, smi, bound))
-    times.update(lane_timings(gen, pgen, dev, smi, wide_perms, bound))
+    times.update(lane_timings(gen, pkeys, dev, smi, wide_perms, bound))
     torch.cuda.synchronize()
     extra = ("unaligned_t2_1", "unaligned_t2_3", "threshold_sweep", "K6b_batched",
              "lanes_4095", "lanes_40000")

@@ -2,7 +2,10 @@
 PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of `csgn_tpu` (JAX + Pallas), which stays the reference: the same key
-indices, seeds and ciphertext words give bit-equal words and parities.  The
+indices, seeds and ciphertext words give bit-equal words and parities, and
+`rng` is the counterpart of `jax.random` (``rng.key(s)`` for
+``jax.random.key(s)``), so the same keys draw the same secret keys,
+permutations and ciphertext words.  The
 data contract is unchanged — word-major ``[W, C]`` MSB-first 32-bit words,
 held as ``torch.int32`` (a bit-identical view of the uint32 words).
 
@@ -14,7 +17,7 @@ CLI: ``--device cpu``), and raise where there is no card.  Checkpoints
 (`csgn_tpu_torch.io`) use the JAX package's file format.
 """
 
-from csgn_tpu_torch import models
+from csgn_tpu_torch import models, rng
 from csgn_tpu_torch.batch import CiphertextBatch
 from csgn_tpu_torch.ciphertext import Ciphertext, set_eager_order
 from csgn_tpu_torch.circuit import CtExpr
@@ -30,5 +33,5 @@ __version__ = "0.1.0"
 __all__ = [
     "Context", "Plaintext", "SecretKey", "Ciphertext", "CiphertextBatch", "set_eager_order",
     "Permutation",
-    "CtExpr", "RunConfig", "BatchExecutor", "models", "__version__",
+    "CtExpr", "RunConfig", "BatchExecutor", "models", "rng", "__version__",
 ]

@@ -12,10 +12,10 @@ runs the plain torch versions):
   info      — context, layout and device report
   flagship  — homomorphic AES-128 (FIPS-197) + SHA-256 (hashlib), asserted
 
-Randomness comes from ``seed``: keys and permutations from a
-`torch.Generator`, encryption seeds from a numpy generator.  The bits differ
-from the JAX CLI's (its keys come from `jax.random`); the asserted results
-do not.
+Randomness comes from ``seed`` as in the JAX CLI: each command splits
+``rng.key(seed)`` (``jax.random.key(seed)``) into the same keys and uses
+them in the same places, on the default encrypt engine, so its secret keys,
+ciphertext words and permutations are the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import time
 import numpy as np
 import torch
 
+from csgn_tpu_torch import rng
 from csgn_tpu_torch._device import resolve_device
 from csgn_tpu_torch.config import RunConfig
 
@@ -42,29 +43,28 @@ def _load_config(args) -> RunConfig:
     return RunConfig(n=args.n, d=args.d, seed=args.seed)
 
 
-def _seeds(cfg: RunConfig, k: int) -> list[int]:
-    """k encryption seeds drawn from the run's seed."""
-    return [int(s) for s in np.random.default_rng(cfg.seed).integers(0, 2**63, k)]
+def _keys(cfg: RunConfig, k: int) -> tuple[rng.Key, ...]:
+    """``jax.random.split(jax.random.key(seed), k)``, as the JAX CLI draws."""
+    return rng.split(rng.key(cfg.seed), k)
 
 
 def cmd_demo(cfg: RunConfig, dev: torch.device) -> int:
     from csgn_tpu_torch import Permutation, Plaintext, SecretKey
 
     ctx = cfg.context()
-    gen = torch.Generator().manual_seed(cfg.seed)
-    seeds = _seeds(cfg, 2)
+    keys = _keys(cfg, 4)
     print(f"Context: n={ctx.n} d={ctx.d} s={ctx.s} words/chunk={ctx.words64}")
 
-    sk = SecretKey.generate(ctx, gen, dev)
-    c1 = sk.encrypt(Plaintext(1), seeds[0])
-    c0 = sk.encrypt(Plaintext(0), seeds[1])
+    sk = SecretKey.generate(ctx, keys[0], dev)
+    c1 = sk.encrypt(Plaintext(1), keys[1])
+    c0 = sk.encrypt(Plaintext(0), keys[2])
     added, multiplied = c1 + c0, c1 * c0
     da, dm = sk.decrypt(added), sk.decrypt(multiplied)
     print(f"Dec ( Enc (1) + Enc (0) ) = {da}")
     print(f"Dec ( Enc (1) * Enc (0) ) = {dm}")
     assert int(da) == 1 and int(dm) == 0
 
-    perm = Permutation.random(ctx, gen)
+    perm = Permutation.random(ctx, keys[3])
     psk = sk.apply_permutation(perm)
     pct = c1.apply_permutation(perm)
     dp = psk.decrypt(pct)
@@ -79,9 +79,10 @@ def cmd_selftest(cfg: RunConfig, dev: torch.device) -> int:
     from csgn_tpu_torch import SecretKey
 
     ctx = cfg.context()
-    sk = SecretKey.generate(ctx, torch.Generator().manual_seed(cfg.seed), dev)
+    keys = _keys(cfg, 3)
+    sk = SecretKey.generate(ctx, keys[0], dev)
     bits = np.random.default_rng(cfg.seed).integers(0, 2, cfg.batch).astype(np.int32)
-    words = sk.encrypt_batch(bits, _seeds(cfg, 1)[0])
+    words = sk.encrypt_batch(bits, keys[1])
     dec = sk.decrypt_batch(words).cpu().numpy()
     ok = bool(np.array_equal(dec, bits))
     print(f"batched encrypt/decrypt roundtrip x{cfg.batch}: {'OK' if ok else 'FAIL'}")
@@ -103,22 +104,21 @@ def cmd_timings(cfg: RunConfig, dev: torch.device) -> int:
     from csgn_tpu_torch.utils.timing import Timer, device_median_time
 
     ctx = cfg.context()
-    gen = torch.Generator().manual_seed(cfg.seed)
-    seeds = _seeds(cfg, 1)
+    keys = _keys(cfg, 4)
     print(f"[device rows: median of 7 on {dev}"
           f"{', CUDA events' if dev.type == 'cuda' else ', host clock'}]")
 
-    SecretKey.generate(ctx, gen, dev)          # warm the key's device copies
+    SecretKey.generate(ctx, keys[3], dev)      # warm the key's device copies
     t = Timer("keygen")
     t.start()
-    sk = SecretKey.generate(ctx, gen, dev)
+    sk = SecretKey.generate(ctx, keys[0], dev)
     t.stop_and_print()
 
     bits = torch.as_tensor(np.random.default_rng(0).integers(0, 2, cfg.batch), device=dev)
-    te = device_median_time(lambda: sk.encrypt_batch(bits, seeds[0]), device=dev)
+    te = device_median_time(lambda: sk.encrypt_batch(bits, keys[1]), device=dev)
     print(f"encrypt x{cfg.batch}: {te*1e3:.3f} ms ({cfg.batch/te:,.0f} enc/s)")
 
-    words = sk.encrypt_batch(bits, seeds[0])
+    words = sk.encrypt_batch(bits, keys[1])
     # Fresh addition (reference timings.cpp:34-37): chunk concatenation.
     ta = device_median_time(lambda: core.add_chunks(words, words), device=dev)
     print(f"add {cfg.batch}+{cfg.batch} chunks: {ta*1e3:.3f} ms")
@@ -130,10 +130,10 @@ def cmd_timings(cfg: RunConfig, dev: torch.device) -> int:
     print(f"write anchor {cfg.batch}x{cfg.batch} chunks: {tf*1e3:.3f} ms "
           f"(anchor / multiply = {tf / tm:.3f})")
 
-    Permutation.random(ctx, gen)
+    Permutation.random(ctx, keys[3])
     tp = Timer("permutation generation")
     tp.start()
-    perm = Permutation.random(ctx, gen)
+    perm = Permutation.random(ctx, keys[2])
     tp.stop_and_print()
 
     tk = Timer("permute secret key")
@@ -176,18 +176,18 @@ def cmd_flagship(cfg: RunConfig, dev: torch.device) -> int:
     from csgn_tpu_torch.models.sha256 import SHA256_IV, sha256_compress, sha256_pad_one_block
 
     ctx = cfg.context()
-    seeds = _seeds(cfg, 3)
-    sk = SecretKey.generate(ctx, torch.Generator().manual_seed(cfg.seed), dev)
-    one = sk.encrypt(1, seeds[0])
+    keys = _keys(cfg, 4)
+    sk = SecretKey.generate(ctx, keys[0], dev)
+    one = sk.encrypt(1, keys[1])
 
-    def enc_bits(bits, seed):
-        words = sk.encrypt_batch(np.array(bits, dtype=np.int32), seed)
+    def enc_bits(bits, key):
+        words = sk.encrypt_batch(np.array(bits, dtype=np.int32), key)
         return [Ciphertext(words[:, i:i + 1], ctx) for i in range(len(bits))]
 
     aes_key = bytes(range(16))
     block = bytes.fromhex("00112233445566778899aabbccddeeff")
     t0 = time.time()
-    cts = enc_bits(bits_from_bytes(aes_key + block), seeds[1])
+    cts = enc_bits(bits_from_bytes(aes_key + block), keys[2])
     (outs,) = eval_expr(aes128(), [cts[:128], cts[128:]], one)
     got = bytes_from_bits([int(v) for v in sk.decrypt_circuits(outs)])
     print(f"AES-128(FIPS C.1) homomorphically = {got.hex()}  [{time.time()-t0:.1f}s]")
@@ -196,7 +196,7 @@ def cmd_flagship(cfg: RunConfig, dev: torch.device) -> int:
     msg = b"csgn_tpu flagship"
     iv = b"".join(struct.pack(">I", h) for h in SHA256_IV)
     t0 = time.time()
-    cts = enc_bits(bits_from_bytes(sha256_pad_one_block(msg) + iv), seeds[2])
+    cts = enc_bits(bits_from_bytes(sha256_pad_one_block(msg) + iv), keys[3])
     (outs,) = eval_expr(sha256_compress(), [cts[:512], cts[512:]], one)
     got = bytes_from_bits([int(v) for v in sk.decrypt_circuits(outs)])
     print(f"SHA-256({msg!r}) homomorphically = {got.hex()}  [{time.time()-t0:.1f}s]")

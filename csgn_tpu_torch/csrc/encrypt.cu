@@ -1,4 +1,4 @@
-// Batched encrypt on two counter-based engines, and the raw stream dump.
+// Batched encrypt on three counter-based engines, and the raw stream dump.
 //
 //   * K4, the counter engine (threefry2x32-20, Random123).  Replaces
 //     csgn_tpu/ops/encrypt_pallas.py:encrypt_bits_counter, bit-exactly.
@@ -15,14 +15,28 @@
 //     (y0..y3) = philox4x32_10(ctr = (j, g, 0, 0), key = (seed_lo, seed_hi)),
 //     and stream row 4g + l is y_l.  The words depend only on (key, seed,
 //     bit, j), for any batch and any block size.
+//   * K14, the JAX package's default engine (threefry2x32-20 under
+//     jax.random's partitionable layout).  Replaces csgn_tpu/ops/core.py:
+//     encrypt_bits, which XLA compiles under jax.jit (no Pallas kernel),
+//     bit-exactly.  From the key's words, host-side: (k_words, k_rbit,
+//     k_ridx) = split(key, 3) and (k_a, k_b) = split(k_ridx).  For global
+//     column j of an encrypt of `total` columns, word row r is
+//     (y0 ^ y1) of threefry2x32(k_words, ctr = (x >> 32, x & M)) at the
+//     64-bit flat index x = r * total + j (jax.random.bits(k_words,
+//     (W, total))); the broken secret index is jax.random.randint's
+//     ((hb % d) * mult + lb % d) % d in uint32 arithmetic, mult =
+//     (2^16 % d)^2 % d, from hb and lb, the draws of k_a and k_b at index
+//     j; the coin is bit 0 of k_rbit's draw at j.  W + 3 threefry calls a
+//     column.
 //   * K13, the Philox stream dump: every row of the stream raw (replaces the
 //     clone kernel of tools/enc_stats.py:49, which imitated K7's draws by
 //     hand; here it consumes them by construction).
 //
-// Both engines derive the words with one fix-up, as _encrypt_derive
+// The engines derive the words with one fix-up, as _encrypt_derive
 // (encrypt_pallas.py:193-214) does it: rows [0, W) are the chunk words
-// (& valid mask), row W picks the broken secret index r = row[W] % d
-// (unsigned), row W + 1 gives the bit-0 coin;
+// (& valid mask), the generator's `select` gives the broken secret index r
+// (K4 and K7: r = row[W] % d, unsigned, and row W + 1 gives the bit-0 coin;
+// K14: randint and its own coin draw);
 //   bit 1: out = words | mask
 //   bit 0: the word holding secret position key[r] has that bit cleared, then
 //          set to the coin unless every other secret bit is already 1.
@@ -31,13 +45,14 @@
 // 70 operations per column at W = 40) more than by the W*4 bytes it writes
 // per column; K7 by the W*4 bytes it writes (11 Philox calls a column at
 // W = 40, each round two IMAD.WIDE.U32 and two LOP3 in the SASS, take about
-// 0.8 of the write time on their own); K13 by the R*4 bytes it writes.
+// 0.8 of the write time on their own); K13 by the R*4 bytes it writes;
+// K14 by its integer work, as K4 (W + 3 threefry calls a column).
 //
-// K4 and K7's column path: one thread per column, at global column
+// K4, K14 and K7's column path: one thread per column, at global column
 // j = col0 + its index (col0 is the first column of a rank's slice of a
 // batch-sharded encrypt), `encrypt_column` templated on the generator.  The
-// call(s) holding rows W and W + 1 run first, so r and the coin are known
-// before the words are; every word is stored to global memory as it is
+// generator's `select` runs first, so r and the coin are known before the
+// words are; every word is stored to global memory as it is
 // generated (4 bytes a lane, coalesced across the warp, row by row), the
 // word holding key[r] last, once the "other secret bits all one" test is
 // known.
@@ -121,7 +136,8 @@ __device__ __forceinline__ void philox4x32_10(uint32_t c0, uint32_t c1, uint32_t
 
 // Generator interface of `encrypt_column`: kWidth rows per call; `calls(w)`
 // calls cover rows [0, w); `call(c, y, at)` gives the call's values and
-// their stream rows; `tail(w, a, b)` gives stream rows w and w + 1.
+// their stream rows; `select(w, d, r, coin)` gives the broken secret index
+// r in [0, d) and the bit-0 coin.  `j` is the global column, set per thread.
 struct Threefry {
   static constexpr int kWidth = 2;
   uint32_t k0, k1, j;
@@ -139,9 +155,9 @@ struct Threefry {
     threefry2x32_20(k0, k1, static_cast<uint32_t>(lo ? r : r - r2), j, y0, y1);
     return lo ? y0 : y1;
   }
-  __device__ void tail(int64_t w, uint32_t& a, uint32_t& b) const {
-    a = row(w);
-    b = row(w + 1);
+  __device__ void select(int64_t w, uint32_t d, uint32_t& r, uint32_t& coin) const {
+    r = row(w) % d;
+    coin = row(w + 1) & 1u;
   }
 };
 
@@ -159,14 +175,44 @@ struct Philox {
   __device__ static uint32_t pick(const uint32_t (&y)[4], int64_t l) {
     return l == 0 ? y[0] : l == 1 ? y[1] : l == 2 ? y[2] : y[3];
   }
-  __device__ void tail(int64_t w, uint32_t& a, uint32_t& b) const {
+  __device__ void select(int64_t w, uint32_t d, uint32_t& r, uint32_t& coin) const {
     uint32_t y[4];
     philox4x32_10(j, static_cast<uint32_t>(w / 4), 0u, 0u, k0, k1, y);
-    a = pick(y, w % 4);
+    r = pick(y, w % 4) % d;
     if ((w + 1) % 4 == 0) {  // rows W and W + 1 straddle two groups (W % 4 == 3)
       philox4x32_10(j, static_cast<uint32_t>(w / 4 + 1), 0u, 0u, k0, k1, y);
     }
-    b = pick(y, (w + 1) % 4);
+    coin = pick(y, (w + 1) % 4) & 1u;
+  }
+};
+
+// K14: one word a call, row c at the flat index c * total + j of
+// jax.random.bits(k_words, (W, total)); randint's two draws and the coin at
+// index j of their (total,) arrays (j < 2^32, so their high counter word is 0).
+struct JaxThreefry {
+  static constexpr int kWidth = 1;
+  uint32_t kw0, kw1, kr0, kr1, ka0, ka1, kb0, kb1;
+  uint64_t total;
+  uint32_t j;
+
+  __device__ static uint32_t draw(uint32_t k0, uint32_t k1, uint64_t x) {
+    uint32_t y0, y1;
+    threefry2x32_20(k0, k1, static_cast<uint32_t>(x >> 32), static_cast<uint32_t>(x), y0, y1);
+    return y0 ^ y1;
+  }
+  __device__ int64_t calls(int64_t rows) const { return rows; }
+  __device__ void call(int64_t c, uint32_t (&y)[1], int64_t (&at)[1]) const {
+    y[0] = draw(kw0, kw1, static_cast<uint64_t>(c) * total + j);
+    at[0] = c;
+  }
+  // jax.random.randint(k_ridx, (total,), 0, d)[j]: every product and sum
+  // wraps in uint32, as in jax's _randint.
+  __device__ void select(int64_t, uint32_t d, uint32_t& r, uint32_t& coin) const {
+    const uint32_t hb = draw(ka0, ka1, j), lb = draw(kb0, kb1, j);
+    uint32_t mult = 65536u % d;
+    mult = (mult * mult) % d;
+    r = ((hb % d) * mult + lb % d) % d;
+    coin = draw(kr0, kr1, j) & 1u;
   }
 };
 
@@ -177,10 +223,8 @@ __device__ __forceinline__ void encrypt_column(const Gen& gen, bool one,
                                                const uint32_t* sm_mask, const uint32_t* sm_valid,
                                                uint32_t* __restrict__ col, int64_t w,
                                                int64_t batch) {
-  uint32_t row_w, row_w1;
-  gen.tail(w, row_w, row_w1);
-  const uint32_t r = row_w % static_cast<uint32_t>(d);
-  const uint32_t coin = row_w1 & 1u;
+  uint32_t r, coin;
+  gen.select(w, static_cast<uint32_t>(d), r, coin);
   const int32_t pos = key_idx[r];
   const int64_t r_word = pos >> 5;
   const uint32_t r_bit = 1u << (31 - (pos & 31));
@@ -216,12 +260,13 @@ __device__ __forceinline__ void encrypt_column(const Gen& gen, bool one,
   }
 }
 
-template <bool kPhilox>
+// `gen` holds the engine's keys; each thread sets its column.
+template <class Gen>
 __global__ void __launch_bounds__(kThreads)
 encrypt_kernel(const int32_t* __restrict__ bits, const int32_t* __restrict__ key_idx,
                const uint32_t* __restrict__ mask, const uint32_t* __restrict__ valid,
                uint32_t* __restrict__ out, int64_t w, int64_t d, int64_t batch, int64_t col0,
-               uint32_t k0, uint32_t k1) {
+               Gen gen) {
   extern __shared__ uint32_t sm[];  // mask [w], then valid mask [w]
   for (int64_t r = threadIdx.x; r < w; r += blockDim.x) {
     sm[r] = mask[r];
@@ -230,14 +275,8 @@ encrypt_kernel(const int32_t* __restrict__ bits, const int32_t* __restrict__ key
   __syncthreads();
   const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (j >= batch) return;
-  const uint32_t cj = static_cast<uint32_t>(col0 + j);
-  const bool one = (bits[j] & 1) != 0;
-  if (kPhilox) {
-    encrypt_column(Philox{k0, k1, cj}, one, key_idx, d, sm, sm + w, out + j, w, batch);
-  } else {
-    encrypt_column(Threefry{k0, k1, cj, (w + 3) / 2}, one, key_idx, d, sm, sm + w, out + j,
-                   w, batch);
-  }
+  gen.j = static_cast<uint32_t>(col0 + j);
+  encrypt_column(gen, (bits[j] & 1) != 0, key_idx, d, sm, sm + w, out + j, w, batch);
 }
 
 // K7's tile path.  Shared memory (dynamic): the tile [w][kCols] of words,
@@ -388,21 +427,20 @@ philox_streams_kernel(uint32_t* __restrict__ out, int64_t rows, int64_t batch, u
 constexpr int kTileCols = 128;
 constexpr int kTileMaxWords = 192;
 
-template <bool kPhilox>
+template <class Gen>
 int launch_encrypt(const void* bits, const void* key_idx, const void* mask, const void* valid,
-                   void* out, int64_t w, int64_t d, int64_t batch, int64_t col0,
-                   int64_t seed_lo, int64_t seed_hi, void* stream) {
+                   void* out, int64_t w, int64_t d, int64_t batch, int64_t col0, Gen gen,
+                   void* stream) {
   const int64_t blocks = (batch + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff || d <= 0 || col0 < 0 || col0 + batch > (int64_t{1} << 32)) {
     return cudaErrorInvalidConfiguration;
   }
-  encrypt_kernel<kPhilox><<<static_cast<unsigned>(blocks), kThreads,
-                            2 * static_cast<size_t>(w) * sizeof(uint32_t),
-                            static_cast<cudaStream_t>(stream)>>>(
+  encrypt_kernel<Gen><<<static_cast<unsigned>(blocks), kThreads,
+                        2 * static_cast<size_t>(w) * sizeof(uint32_t),
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(bits), static_cast<const int32_t*>(key_idx),
       static_cast<const uint32_t*>(mask), static_cast<const uint32_t*>(valid),
-      static_cast<uint32_t*>(out), w, d, batch, col0, static_cast<uint32_t>(seed_lo),
-      static_cast<uint32_t>(seed_hi));
+      static_cast<uint32_t*>(out), w, d, batch, col0, gen);
   return cudaGetLastError();
 }
 
@@ -441,8 +479,10 @@ extern "C" int csgn_encrypt_counter(const void* bits, const void* key_idx, const
                                     const void* valid, void* out, int64_t w, int64_t d,
                                     int64_t batch, int64_t col0, int64_t seed_lo,
                                     int64_t seed_hi, void* stream) {
-  return launch_encrypt<false>(bits, key_idx, mask, valid, out, w, d, batch, col0, seed_lo,
-                               seed_hi, stream);
+  return launch_encrypt(bits, key_idx, mask, valid, out, w, d, batch, col0,
+                        Threefry{static_cast<uint32_t>(seed_lo), static_cast<uint32_t>(seed_hi),
+                                 0u, (w + 3) / 2},
+                        stream);
 }
 
 // The Philox engine, the arguments of csgn_encrypt_counter and its path:
@@ -456,8 +496,10 @@ extern "C" int csgn_encrypt_philox(const void* bits, const void* key_idx, const 
   if (path != 0 && w > kTileMaxWords) return cudaErrorInvalidValue;
   switch (path) {
     case 0:
-      return launch_encrypt<true>(bits, key_idx, mask, valid, out, w, d, batch, col0,
-                                  seed_lo, seed_hi, stream);
+      return launch_encrypt(bits, key_idx, mask, valid, out, w, d, batch, col0,
+                            Philox{static_cast<uint32_t>(seed_lo),
+                                   static_cast<uint32_t>(seed_hi), 0u},
+                            stream);
     case 1:
       return launch_philox_tile<kTileCols, true>(bits, key_idx, mask, valid, out, w, d, batch,
                                                  col0, seed_lo, seed_hi, stream);
@@ -467,6 +509,23 @@ extern "C" int csgn_encrypt_philox(const void* bits, const void* key_idx, const 
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// K14, JAX's default engine: the arguments of csgn_encrypt_counter up to col0,
+// then `total`, the columns of the whole encrypt (col0 + batch <= total <=
+// 2^32), and the uint32 words of k_words, k_rbit and randint's keys k_a and
+// k_b (see the top of the file).
+extern "C" int csgn_encrypt_threefry(const void* bits, const void* key_idx, const void* mask,
+                                     const void* valid, void* out, int64_t w, int64_t d,
+                                     int64_t batch, int64_t col0, int64_t total, int64_t kw0,
+                                     int64_t kw1, int64_t kr0, int64_t kr1, int64_t ka0,
+                                     int64_t ka1, int64_t kb0, int64_t kb1, void* stream) {
+  if (total < col0 + batch || total > (int64_t{1} << 32)) return cudaErrorInvalidValue;
+  const auto u = [](int64_t x) { return static_cast<uint32_t>(x); };
+  return launch_encrypt(bits, key_idx, mask, valid, out, w, d, batch, col0,
+                        JaxThreefry{u(kw0), u(kw1), u(kr0), u(kr1), u(ka0), u(ka1), u(kb0),
+                                    u(kb1), static_cast<uint64_t>(total), 0u},
+                        stream);
 }
 
 // out uint32 [rows, batch]: the Philox stream's rows, raw.  Returns

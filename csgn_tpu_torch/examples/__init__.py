@@ -17,19 +17,12 @@
     (`csgn_tpu_torch.parallel`).
 
 Each is the JAX package's ``examples/<name>.py`` on the port: the same
-``main(...)`` arguments and returned dict, with integer seeds in place of JAX
-keys and a ``device`` argument (None: the current CUDA device; ``"cpu"``: the
-plain torch versions).  Keys come from a `torch.Generator` and encryption
-seeds from a numpy generator, both seeded by ``seed``, so the ciphertext words
-differ from the JAX examples'; every decrypted result is asserted against its
+``main(...)`` arguments and returned dict, plus a ``device`` argument (None:
+the current CUDA device; ``"cpu"``: the plain torch versions).  Every key is
+the JAX example's: ``rng.split(rng.key(seed), k)`` is
+``jax.random.split(jax.random.key(seed), k)``, and the draws made from the
+keys (`rng.bernoulli` for the votes, `rng.randint` for the bids' seed) are
+`jax.random`'s, so the secret keys, ciphertext words and returned values
+equal the JAX example's; every decrypted result is asserted against its
 plaintext expectation.
 """
-
-import numpy as np
-
-__all__ = ["encrypt_seeds"]
-
-
-def encrypt_seeds(seed: int, k: int) -> list[int]:
-    """k encryption seeds drawn from an example's seed."""
-    return [int(s) for s in np.random.default_rng([seed, 0x5EED]).integers(0, 2**63, k)]

@@ -18,12 +18,8 @@ from __future__ import annotations
 import argparse
 import pathlib
 
-import numpy as np
-import torch
-
-from csgn_tpu_torch import Ciphertext, Context, SecretKey
+from csgn_tpu_torch import Context, SecretKey, rng
 from csgn_tpu_torch._device import resolve_device
-from csgn_tpu_torch.examples import encrypt_seeds
 from csgn_tpu_torch.models.netlist import Netlist, eval_expr, eval_plain
 
 CIRCUIT = pathlib.Path(__file__).resolve().parents[2] / "tests" / "circuits" / "adder64.txt"
@@ -37,16 +33,16 @@ def main(x: int = 123456789, y: int = 987654321, n: int = 95, d: int = 4, seed: 
         raise ValueError(f"{CIRCUIT.name}: interface {nl.input_sizes} -> {nl.output_sizes}")
 
     ctx = Context(n, d)
-    s_one, s_bits = encrypt_seeds(seed, 2)
-    sk = SecretKey.generate(ctx, torch.Generator().manual_seed(seed), dev)
-    one = sk.encrypt(1, s_one)
+    keys = rng.split(rng.key(seed), 130)
+    sk = SecretKey.generate(ctx, keys[0], dev)
+    one = sk.encrypt(1, keys[1])
 
     bits_x = [(x >> i) & 1 for i in range(64)]
     bits_y = [(y >> i) & 1 for i in range(64)]
-    words = sk.encrypt_batch(np.array(bits_x + bits_y, dtype=np.int32), s_bits)
-    enc = [Ciphertext(words[:, i:i + 1], ctx) for i in range(128)]
+    enc_x = [sk.encrypt(b, keys[2 + i]) for i, b in enumerate(bits_x)]
+    enc_y = [sk.encrypt(b, keys[66 + i]) for i, b in enumerate(bits_y)]
 
-    (expr_out,) = eval_expr(nl, [enc[:64], enc[64:]], one)
+    (expr_out,) = eval_expr(nl, [enc_x, enc_y], one)
     want = (x + y) % 2**64
     # Plain-oracle check of the whole circuit, then the encrypted sum.
     (plain,) = eval_plain(nl, [bits_x, bits_y])

@@ -15,11 +15,8 @@ from __future__ import annotations
 
 import argparse
 
-import torch
-
-from csgn_tpu_torch import Context, SecretKey
+from csgn_tpu_torch import Context, SecretKey, rng
 from csgn_tpu_torch._device import resolve_device
-from csgn_tpu_torch.examples import encrypt_seeds
 from csgn_tpu_torch.pipeline import chain_chunks
 
 
@@ -27,18 +24,18 @@ def main(depth: int = 16, recrypt_at: int = 4096, n: int = 95, d: int = 4, seed:
          device=None) -> dict:
     dev = resolve_device(device)
     ctx = Context(n, d)
-    seeds = encrypt_seeds(seed, 2 * depth + 2)
-    sk = SecretKey.generate(ctx, torch.Generator().manual_seed(seed), dev)
+    keys = rng.split(rng.key(seed), 2 * depth + 2)
+    sk = SecretKey.generate(ctx, keys[0], dev)
 
-    acc = sk.encrypt(1, seeds[-1])
+    acc = sk.encrypt(1, keys[1])
     expect = 1
     recrypts = 0
     peak_chunks = 1
     for i in range(depth):
         bit = 1  # all-ones keeps the product alive through full depth
-        operand = sk.encrypt(bit, seeds[2 * i]) + sk.encrypt(0, seeds[2 * i + 1])  # 2 chunks
+        operand = sk.encrypt(bit, keys[2 * i]) + sk.encrypt(0, keys[2 * i + 1])  # 2 chunks
         if acc.chunks * operand.chunks > recrypt_at:
-            acc = sk.recrypt(acc, seeds[2 * i + 1] ^ 1)   # growth reset (key holder)
+            acc = sk.recrypt(acc, keys[2 * i + 1])   # growth reset (key holder)
             recrypts += 1
         acc = acc * operand
         expect &= bit

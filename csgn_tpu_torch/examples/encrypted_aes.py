@@ -20,12 +20,8 @@ from __future__ import annotations
 import argparse
 import time
 
-import numpy as np
-import torch
-
-from csgn_tpu_torch import Ciphertext, Context, SecretKey
+from csgn_tpu_torch import Context, SecretKey, rng
 from csgn_tpu_torch._device import resolve_device
-from csgn_tpu_torch.examples import encrypt_seeds
 from csgn_tpu_torch.models.aes import aes128
 from csgn_tpu_torch.models.netlist import bits_from_bytes, bytes_from_bits, eval_expr
 
@@ -41,17 +37,18 @@ def main(n: int = 95, d: int = 4, seed: int = 0xAE5, device=None) -> dict:
     t_build = time.time() - t0
 
     ctx = Context(n, d)
-    s_one, s_enc = encrypt_seeds(seed, 2)
-    sk = SecretKey.generate(ctx, torch.Generator().manual_seed(seed), dev)
-    one = sk.encrypt(1, s_one)
+    k_key, k_one, k_enc = rng.split(rng.key(seed), 3)
+    sk = SecretKey.generate(ctx, k_key, dev)
+    one = sk.encrypt(1, k_one)
 
-    # Client: encrypt every key/plaintext bit, in one launch.
-    words = sk.encrypt_batch(np.array(bits_from_bytes(aes_key + block), dtype=np.int32), s_enc)
-    enc = [Ciphertext(words[:, i:i + 1], ctx) for i in range(256)]
+    # Client: encrypt every key/plaintext bit, each under its own key.
+    ks = rng.split(k_enc, 256)
+    enc_key = [sk.encrypt(b, ks[i]) for i, b in enumerate(bits_from_bytes(aes_key))]
+    enc_pt = [sk.encrypt(b, ks[128 + i]) for i, b in enumerate(bits_from_bytes(block))]
 
     # --- untrusted evaluator: no key from here on ---------------------------
     t0 = time.time()
-    (outs,) = eval_expr(nl, [enc[:128], enc[128:]], one)
+    (outs,) = eval_expr(nl, [enc_key, enc_pt], one)
     t_eval = time.time() - t0
 
     # --- key holder: batched leaf decrypts + one shared DAG fold ------------

@@ -21,13 +21,9 @@ import hmac as hmac_mod
 import struct
 import time
 
-import numpy as np
-import torch
-
-from csgn_tpu_torch import Ciphertext, Context, SecretKey
+from csgn_tpu_torch import Context, SecretKey, rng
 from csgn_tpu_torch._device import resolve_device
 from csgn_tpu_torch.circuit import lift
-from csgn_tpu_torch.examples import encrypt_seeds
 from csgn_tpu_torch.models.netlist import bits_from_bytes, bytes_from_bits, eval_expr
 from csgn_tpu_torch.models.sha256 import SHA256_IV, sha256_compress
 
@@ -40,13 +36,13 @@ def main(n: int = 95, d: int = 4, seed: int = 0x11AC, device=None) -> dict:
 
     nl = sha256_compress()
     ctx = Context(n, d)
-    s_one, s_enc = encrypt_seeds(seed, 2)
-    sk = SecretKey.generate(ctx, torch.Generator().manual_seed(seed), dev)
-    one = sk.encrypt(1, s_one)
+    k_key, k_one, k_enc = rng.split(rng.key(seed), 3)
+    sk = SecretKey.generate(ctx, k_key, dev)
+    one = sk.encrypt(1, k_one)
 
-    # Client: encrypt the 256 MAC-key bits, in one launch.
-    words = sk.encrypt_batch(np.array(bits_from_bytes(mac_key), dtype=np.int32), s_enc)
-    enc_key = [Ciphertext(words[:, i:i + 1], ctx) for i in range(256)]
+    # Client: encrypt the 256 MAC-key bits, each under its own key.
+    ks = rng.split(k_enc, 256)
+    enc_key = [sk.encrypt(b, ks[i]) for i, b in enumerate(bits_from_bytes(mac_key))]
 
     # --- untrusted evaluator: no key from here on ---------------------------
     t0 = time.time()

@@ -21,27 +21,23 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-import torch
 
-from csgn_tpu_torch import CiphertextBatch, Context, Permutation, SecretKey
+from csgn_tpu_torch import CiphertextBatch, Context, Permutation, SecretKey, rng
 from csgn_tpu_torch._device import resolve_device
-from csgn_tpu_torch.examples import encrypt_seeds
 
 
 def main(fleet: int = 8, n: int = 1247, d: int = 16, seed: int = 0, device=None) -> dict:
     dev = resolve_device(device)
     ctx = Context(n, d)
-    gen = torch.Generator().manual_seed(seed)
-    s_bits, s_other = encrypt_seeds(seed, 2)
-    sk = SecretKey.generate(ctx, gen, dev)
+    keys = rng.split(rng.key(seed), 3 + fleet)
+    sk = SecretKey.generate(ctx, keys[0], dev)
 
     # Fleet of fresh ciphertexts (one batched launch), grown by one
     # homomorphic multiply so the rotation runs on multi-chunk payloads.
-    rng = np.random.default_rng(seed)
-    bits = rng.integers(0, 2, fleet, dtype=np.uint8).astype(np.int32)
+    bits = np.random.default_rng(seed).integers(0, 2, fleet, dtype=np.uint8).astype(np.int32)
     other = np.ones(fleet, np.int32)  # AND with 1: bit-preserving
-    batch = CiphertextBatch.from_fresh(sk.encrypt_batch(bits, s_bits), ctx)
-    batch = batch + CiphertextBatch.from_fresh(sk.encrypt_batch(other, s_other), ctx)
+    batch = CiphertextBatch.from_fresh(sk.encrypt_batch(bits, keys[1]), ctx)
+    batch = batch + CiphertextBatch.from_fresh(sk.encrypt_batch(other, keys[2]), ctx)
     grown = batch * batch  # 4 chunks/element: (b ^ 1)^2 = b ^ 1
     want = [int(b) ^ 1 for b in bits]
     grown_bits = sk.decrypt_batch(grown).tolist()
@@ -49,7 +45,7 @@ def main(fleet: int = 8, n: int = 1247, d: int = 16, seed: int = 0, device=None)
         raise RuntimeError(f"grown fleet decrypts to {grown_bits}, expected {want}")
 
     # One rotation per element, all in one kernel launch.
-    perms = [Permutation.random(ctx, gen) for _ in range(fleet)]
+    perms = [Permutation.random(ctx, keys[3 + i]) for i in range(fleet)]
     rotated = grown.apply_permutations(perms)
 
     # Every client decrypts under its own rotated key.

@@ -20,34 +20,29 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-import torch
 
-from csgn_tpu_torch import BatchExecutor, Context, SecretKey
+from csgn_tpu_torch import BatchExecutor, Context, SecretKey, rng
 from csgn_tpu_torch._device import resolve_device
-from csgn_tpu_torch.examples import encrypt_seeds
 from csgn_tpu_torch.models import comparator_gt
 from csgn_tpu_torch.models.netlist import eval_expr, eval_plain
-
-
-def auction(bidders: int, width: int, seed: int) -> tuple[np.ndarray, int]:
-    """The bids and the reserve price the example draws from `seed`."""
-    rng = np.random.default_rng(seed)
-    bids = rng.integers(0, 1 << width, size=bidders)
-    return bids, int(rng.integers(0, 1 << width))
 
 
 def main(bidders: int = 8, width: int = 16, n: int = 95, d: int = 4, seed: int = 0,
          device=None) -> dict:
     dev = resolve_device(device)
     ctx = Context(n, d)
-    sk = SecretKey.generate(ctx, torch.Generator().manual_seed(seed), dev)
-    bids, reserve = auction(bidders, width, seed)
+    k_key, k_enc, k_bids = rng.split(rng.key(seed), 3)
+    sk = SecretKey.generate(ctx, k_key, dev)
+
+    draws = np.random.default_rng(int(rng.randint(k_bids, (), 0, 2**31 - 1)))
+    bids = draws.integers(0, 1 << width, size=bidders)
+    reserve = int(draws.integers(0, 1 << width))
 
     def bits(x: int) -> list[int]:
         return [(x >> i) & 1 for i in range(width)]
 
     # --- clients + auctioneer: encrypt every bid bit in ONE batched launch
-    ex = BatchExecutor(sk, seed=encrypt_seeds(seed, 1)[0])
+    ex = BatchExecutor(sk, rng=k_enc)
     bid_futs = [[ex.submit_encrypt(b) for b in bits(int(v))] for v in bids]
     reserve_futs = [ex.submit_encrypt(b) for b in bits(reserve)]
     one_fut = ex.submit_encrypt(1)

@@ -19,7 +19,7 @@ import argparse
 import numpy as np
 import torch
 
-from csgn_tpu_torch import Context, SecretKey
+from csgn_tpu_torch import Context, SecretKey, rng
 from csgn_tpu_torch.parallel import (chunk_mesh, sharded_decrypt_parity,
                                      sharded_encrypt_bits_invariant, sharded_mul_allgather)
 from csgn_tpu_torch.tools._jobs import job
@@ -34,12 +34,12 @@ def main(batch: int = 64, n: int = 1247, d: int = 16, device=None) -> dict:
         bl = batch // nd
         me = mesh.coord("c")
 
-        sk = SecretKey.generate(ctx, torch.Generator().manual_seed(0), dev)
+        sk = SecretKey.generate(ctx, rng.key(0), dev)
         bits = np.arange(batch) % 2
         mine = torch.from_numpy(bits[me * bl:(me + 1) * bl].astype(np.int32)).to(dev)
 
-        words = sharded_encrypt_bits_invariant(1, mine, *sk.encrypt_operands, ctx.n, ctx.d,
-                                               mesh)          # this rank's [W, batch/nd]
+        words = sharded_encrypt_bits_invariant(rng.key(1), mine, *sk.encrypt_operands, ctx.n,
+                                               ctx.d, mesh)   # this rank's [W, batch/nd]
         prod = sharded_mul_allgather(words, words, mesh)      # its [W, batch/nd * batch]
         mask = sk.mask_words
         parity_in = int(sharded_decrypt_parity(words, mask, mesh))

@@ -17,22 +17,21 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-import torch
 
-from csgn_tpu_torch import Ciphertext, Context, SecretKey
+from csgn_tpu_torch import Ciphertext, Context, SecretKey, rng
 from csgn_tpu_torch._device import resolve_device
-from csgn_tpu_torch.examples import encrypt_seeds
 from csgn_tpu_torch.pipeline import mul_chain
 
 
 def main(voters: int = 64, n: int = 1247, d: int = 16, seed: int = 0, device=None) -> dict:
     dev = resolve_device(device)
     ctx = Context(n, d)
+    k_key, k_enc, k_votes = rng.split(rng.key(seed), 3)
 
     # Election authority: keygen.  Voters: encrypt one bit each (batched).
-    sk = SecretKey.generate(ctx, torch.Generator().manual_seed(seed), dev)
-    votes = (np.random.default_rng(seed).random(voters) < 0.9).astype(np.int32)
-    words = sk.encrypt_batch(votes, encrypt_seeds(seed, 1)[0])         # [W, voters]
+    sk = SecretKey.generate(ctx, k_key, dev)
+    votes = rng.bernoulli(k_votes, 0.9, (voters,)).astype(np.int32)
+    words = sk.encrypt_batch(votes, k_enc)                               # [W, voters]
 
     # --- untrusted tally server: no key from here on -----------------------
     parity_ct = Ciphertext(words, ctx)

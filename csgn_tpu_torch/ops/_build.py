@@ -54,6 +54,7 @@ LAUNCHES = {
     "chunk_matches": 0,
     "encrypt_bits_counter": 0,
     "encrypt_bits_philox": 0,
+    "encrypt_bits_threefry": 0,
     # K7's launches by path (csrc/encrypt.cu), also counted under
     # "encrypt_bits_philox": the tile path (W <= PHILOX_TILE_MAX_WORDS), of
     # which those with 4-byte row stores (batch % 4 != 0), and the column path
@@ -101,6 +102,9 @@ _SIGNATURES = {
     # ..., seed_hi, path (0 column, 1 tile with 16-byte stores, 2 tile with
     # 4-byte stores), stream
     "csgn_encrypt_philox": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # bits, key_idx, mask, valid, out, w, d, batch, col0, total, then the
+    # words of k_words, k_rbit and randint's two keys, stream
+    "csgn_encrypt_threefry": (_P, _P, _P, _P, _P, *(_I,) * 13, _P),
     # out, rows, batch, seed_lo, seed_hi, stream
     "csgn_philox_streams": (_P, _I, _I, _I, _I, _P),
     # out, value, w, c, stream

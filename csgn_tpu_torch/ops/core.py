@@ -20,10 +20,10 @@ from __future__ import annotations
 
 import torch
 
-from csgn_tpu_torch import layout
+from csgn_tpu_torch import layout, rng
 
 __all__ = ["add_chunks", "mul_chunks", "chunk_matches", "decrypt_parity", "permute_chunks",
-           "keygen"]
+           "keygen", "encrypt_bits_threefry_plain"]
 
 
 def add_chunks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -72,11 +72,52 @@ def permute_chunks(words: torch.Tensor, perm: torch.Tensor, n: int) -> torch.Ten
     return layout.pack_bits_wc(out)
 
 
-def keygen(n: int, d: int, generator: torch.Generator) -> torch.Tensor:
+def keygen(key: rng.Key, n: int, d: int) -> torch.Tensor:
     """Sample d distinct secret bit positions in [0, n) -> int32[d] (CPU).
 
-    The first d entries of a uniform permutation, as `csgn_tpu.ops.core.keygen`
-    does with `jax.random.permutation`; the two generators give different
-    keys from the same seed, so tests hand both packages the same indices.
+    ``jax.random.permutation(key, n)[:d]``, bit for bit: the JAX package's
+    `csgn_tpu.ops.core.keygen` (the same key gives the same indices, in the
+    same order).
     """
-    return torch.randperm(n, generator=generator)[:d].to(torch.int32)
+    return torch.from_numpy(rng.permutation(key, n)[:d])
+
+
+def encrypt_bits_threefry_plain(key: rng.Key, bits: torch.Tensor, key_idx: torch.Tensor,
+                                mask: torch.Tensor, valid_mask: torch.Tensor, *,
+                                col0: int = 0, total: int | None = None) -> torch.Tensor:
+    """The JAX package's default encrypt engine (`csgn_tpu.ops.core.encrypt_bits`,
+    "threefry") in plain torch, on any device: bits[batch] -> int32[W, batch],
+    bit for bit.
+
+    The batch is the columns ``[col0, col0 + batch)`` of an encrypt of
+    `total` columns (default ``col0 + batch``), so a rank's slice of a
+    sharded encrypt equals the one-device encrypt's columns.  With
+    ``(k_words, k_rbit, k_ridx) = split(key, 3)``, column j's words are
+    ``bits(k_words, (W, total))[:, j] & valid_mask``, its broken secret index
+    is ``randint(k_ridx, (total,), 0, d)[j]`` and its coin
+    ``bits(k_rbit, (total,))[j] & 1``; bit 1 ORs in the mask, bit 0 clears
+    key[r]'s bit and sets it to the coin unless the other secret bits are
+    all one (reference src/SecretKey.cpp:35-80).
+    """
+    w, d, batch = mask.shape[0], key_idx.shape[0], bits.shape[0]
+    total = col0 + batch if total is None else int(total)
+    dev = bits.device
+    k_words, k_rbit, k_ridx = rng.split(key, 3)
+    j = torch.arange(col0, col0 + batch, dtype=torch.int64, device=dev)
+    rows = torch.arange(w, dtype=torch.int64, device=dev)[:, None]
+    # The int64 -> int32 casts wrap [0, 2^32) onto the int32 view.
+    words = rng.bits_flat(k_words, rows * total + j).to(torch.int32) & valid_mask[:, None]
+    ones_words = words | mask[:, None]
+
+    k1, k2 = rng.split(k_ridx)
+    r = rng.randint_mod(d, rng.bits_flat(k1, j), rng.bits_flat(k2, j))
+    r_pos = key_idx.to(torch.int64)[r]
+    r_bit = (torch.ones_like(r_pos) << (31 - r_pos % 32)).to(torch.int32)
+    onehot = torch.where(rows == (r_pos // 32)[None, :], r_bit[None, :], 0)
+    mask_wo = mask[:, None] & ~onehot
+    others_all_one = ((words & mask_wo) == mask_wo).all(dim=0)
+    rand_bit = (rng.bits_flat(k_rbit, j) & 1) == 1
+    forced = torch.where(rand_bit & ~others_all_one, onehot, 0)
+    zero_words = (words & ~onehot) | forced
+    is_one = ((bits.to(torch.int64) & 1) == 1)[None, :]
+    return torch.where(is_one, ones_words, zero_words)

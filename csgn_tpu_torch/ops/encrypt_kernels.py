@@ -1,7 +1,18 @@
-"""Batched encrypt: the counter engine (K4) and the Philox engine (K7), the
-Philox stream dump (K13), each with its plain torch version.
+"""Batched encrypt: the JAX package's default engine (K14), the counter
+engine (K4) and the Philox engine (K7), the Philox stream dump (K13), each
+with its plain torch version.
 
-Both engines draw a stream of R = W + 2 uint32 rows per column j of the
+**The default engine** (K14), `encrypt_bits_threefry`, is the JAX
+package's `csgn_tpu.ops.core.encrypt_bits` under a `jax.random` key
+(`rng.Key`), bit for bit; its plain version is
+`ops.core.encrypt_bits_threefry_plain`, which states the draws.  The kernel
+takes the four keys the host splits (`threefry_engine_keys`): one threefry
+call a word at the flat index ``r * total + j`` of the word array, randint's
+two draws and the coin at index j, and K4's fix-up.  ``col0`` and ``total``
+make the batch the columns ``[col0, col0 + batch)`` of an encrypt of
+``total`` columns (a rank's slice of the mesh-invariant sharded encrypt).
+
+K4 and K7 draw a stream of R = W + 2 uint32 rows per column j of the
 batch and derive the ciphertext words from it with one fix-up,
 `derive_words` (the JAX package's `_encrypt_derive`,
 csgn_tpu/ops/encrypt_pallas.py:193-214): rows [0, W) are the chunk words
@@ -59,8 +70,11 @@ from __future__ import annotations
 
 import torch
 
+from csgn_tpu_torch import rng
 from csgn_tpu_torch._device import resolve_device
 from csgn_tpu_torch.ops._build import LAUNCHES, check, lib, ptr, stream_of
+from csgn_tpu_torch.ops.core import encrypt_bits_threefry_plain
+from csgn_tpu_torch.rng import threefry2x32
 
 __all__ = [
     "LAUNCHES",
@@ -72,6 +86,9 @@ __all__ = [
     "encrypt_bits_counter_plain",
     "encrypt_bits_philox",
     "encrypt_bits_philox_plain",
+    "encrypt_bits_threefry",
+    "encrypt_bits_threefry_plain",
+    "threefry_engine_keys",
     "philox_path",
     "PHILOX_TILE_COLS",
     "PHILOX_TILE_MAX_WORDS",
@@ -85,27 +102,8 @@ _M32 = 0xFFFFFFFF
 PHILOX_TILE_COLS = 128
 PHILOX_TILE_MAX_WORDS = 192
 _PHILOX_PATHS = {"column": 0, "tile": 1, "tile_4byte": 2}
-_TF_ROT = (13, 15, 26, 6, 17, 29, 16, 24)
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-
-
-def threefry2x32(k0: int, k1: int, c0: torch.Tensor, c1: torch.Tensor):
-    """Threefry-2x32-20 (Random123) on int64 tensors holding uint32 counters;
-    returns (y0, y1) as int64 in [0, 2^32)."""
-    ks = (k0 & _M32, k1 & _M32, (0x1BD11BDA ^ k0 ^ k1) & _M32)
-    x0 = (c0 + ks[0]) & _M32
-    x1 = (c1 + ks[1]) & _M32
-    for i in range(20):
-        r = _TF_ROT[i % 8]
-        x0 = (x0 + x1) & _M32
-        x1 = ((x1 << r) & _M32) | (x1 >> (32 - r))
-        x1 = x1 ^ x0
-        if i % 4 == 3:
-            inj = i // 4 + 1
-            x0 = (x0 + ks[inj % 3]) & _M32
-            x1 = (x1 + ks[(inj + 1) % 3] + inj) & _M32
-    return x0, x1
 
 
 def mulhilo32(m: int, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -255,18 +253,17 @@ def philox_path(w: int, batch: int) -> str:
     return "tile" if batch % 4 == 0 else "tile_4byte"
 
 
-def _encrypt_cuda(name: str, entry: str, seed: int, bits, key_idx, mask, valid_mask,
-                  col0: int, path: str | None = None):
+def _encrypt_cuda(name: str, entry: str, bits, key_idx, mask, valid_mask, col0: int,
+                  engine_args: tuple, path: str | None = None):
     w, d, batch = mask.shape[0], key_idx.shape[0], bits.shape[0]
     out = torch.empty((w, batch), dtype=torch.int32, device=bits.device)
     if batch:
         bits32 = bits.to(torch.int32).contiguous()
-        seed_lo, seed_hi = _seed_halves(seed)
         extra = () if path is None else (_PHILOX_PATHS[path],)
         with torch.cuda.device(bits.device):
             check(name, getattr(lib(), entry)(
                 ptr(bits32), ptr(key_idx.contiguous()), ptr(mask.contiguous()),
-                ptr(valid_mask.contiguous()), ptr(out), w, d, batch, col0, seed_lo, seed_hi,
+                ptr(valid_mask.contiguous()), ptr(out), w, d, batch, col0, *engine_args,
                 *extra, stream_of(bits),
             ))
         LAUNCHES[name] += 1
@@ -290,8 +287,8 @@ def encrypt_bits_counter(seed: int, bits: torch.Tensor, key_idx: torch.Tensor,
     _check_encrypt_operands("encrypt_bits_counter", bits, key_idx, mask, valid_mask, col0)
     if bits.device.type == "cpu":
         return encrypt_bits_counter_plain(seed, bits, key_idx, mask, valid_mask, col0=col0)
-    return _encrypt_cuda("encrypt_bits_counter", "csgn_encrypt_counter", seed, bits,
-                         key_idx, mask, valid_mask, col0)
+    return _encrypt_cuda("encrypt_bits_counter", "csgn_encrypt_counter", bits, key_idx, mask,
+                         valid_mask, col0, _seed_halves(seed))
 
 
 def encrypt_bits_philox(seed: int, bits: torch.Tensor, key_idx: torch.Tensor,
@@ -307,8 +304,46 @@ def encrypt_bits_philox(seed: int, bits: torch.Tensor, key_idx: torch.Tensor,
     _check_encrypt_operands("encrypt_bits_philox", bits, key_idx, mask, valid_mask, col0)
     if bits.device.type == "cpu":
         return encrypt_bits_philox_plain(seed, bits, key_idx, mask, valid_mask, col0=col0)
-    return _encrypt_cuda("encrypt_bits_philox", "csgn_encrypt_philox", seed, bits, key_idx,
-                         mask, valid_mask, col0, philox_path(mask.shape[0], bits.shape[0]))
+    return _encrypt_cuda("encrypt_bits_philox", "csgn_encrypt_philox", bits, key_idx, mask,
+                         valid_mask, col0, _seed_halves(seed),
+                         philox_path(mask.shape[0], bits.shape[0]))
+
+
+def threefry_engine_keys(key: rng.Key) -> tuple[int, ...]:
+    """The threefry engine's four keys as K14 takes them, eight uint32 words:
+    ``(k_words, k_rbit, k_ridx) = split(key, 3)`` (the order of
+    `csgn_tpu.ops.core.encrypt_bits`), then randint's ``split(k_ridx)``;
+    k_ridx itself draws nothing."""
+    k_words, k_rbit, k_ridx = rng.split(key, 3)
+    k1, k2 = rng.split(k_ridx)
+    return (k_words.k0, k_words.k1, k_rbit.k0, k_rbit.k1, k1.k0, k1.k1, k2.k0, k2.k1)
+
+
+def encrypt_bits_threefry(key: rng.Key, bits: torch.Tensor, key_idx: torch.Tensor,
+                          mask: torch.Tensor, valid_mask: torch.Tensor, *, col0: int = 0,
+                          total: int | None = None) -> torch.Tensor:
+    """Encrypt bits[batch] -> int32[W, batch] on the JAX package's default
+    engine (`csgn_tpu.ops.core.encrypt_bits` under a `jax.random` key), as
+    the columns ``[col0, col0 + batch)`` of an encrypt of `total` columns
+    (default ``col0 + batch``; ``total <= 2^32``).
+
+    Bit-equal to `ops.core.encrypt_bits_threefry_plain`.  CPU tensors take
+    the plain version; CUDA tensors launch K14 (csrc/encrypt.cu) or raise.
+    """
+    _check_encrypt_operands("encrypt_bits_threefry", bits, key_idx, mask, valid_mask, col0)
+    if not isinstance(key, rng.Key):
+        raise TypeError(f"encrypt_bits_threefry: key must be an rng.Key, got "
+                        f"{type(key).__name__}")
+    batch = bits.shape[0]
+    total = col0 + batch if total is None else int(total)
+    if not col0 + batch <= total <= 1 << 32:
+        raise ValueError(f"encrypt_bits_threefry: need col0 + batch <= total <= 2^32, got "
+                         f"col0={col0} batch={batch} total={total}")
+    if bits.device.type == "cpu":
+        return encrypt_bits_threefry_plain(key, bits, key_idx, mask, valid_mask, col0=col0,
+                                           total=total)
+    return _encrypt_cuda("encrypt_bits_threefry", "csgn_encrypt_threefry", bits, key_idx, mask,
+                         valid_mask, col0, (total, *threefry_engine_keys(key)))
 
 
 def _philox_cuda(seed: int, bits, key_idx, mask, valid_mask, *, path: str,
@@ -317,8 +352,8 @@ def _philox_cuda(seed: int, bits, key_idx, mask, valid_mask, *, path: str,
     paths refuse W > `PHILOX_TILE_MAX_WORDS` and "tile" refuses
     batch % 4 != 0, with a CUDA error."""
     _check_encrypt_operands("encrypt_bits_philox", bits, key_idx, mask, valid_mask, col0)
-    return _encrypt_cuda("encrypt_bits_philox", "csgn_encrypt_philox", seed, bits, key_idx,
-                         mask, valid_mask, col0, path)
+    return _encrypt_cuda("encrypt_bits_philox", "csgn_encrypt_philox", bits, key_idx, mask,
+                         valid_mask, col0, _seed_halves(seed), path)
 
 
 def philox_streams(seed: int, batch: int, rows: int, device=None) -> torch.Tensor:

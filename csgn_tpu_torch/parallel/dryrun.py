@@ -5,8 +5,11 @@ rank of an initialized job (`parallel.initialize`) calls `run()`; it drives
 each sharded op on tiny shapes at Context(95, 4) and raises on the first
 result that differs from the one-device computation:
 
-  * the batch-sharded encrypt (every rank's block equal to the one-device
-    encrypt's columns, the mesh-invariant name too);
+  * the batch-sharded encrypt: under an integer seed every rank's block
+    equal to the one-device encrypt's columns (both names); under an
+    `rng.Key` the mesh-invariant form equal to those columns of the
+    one-device encrypt and the other form to the one-device encrypt of the
+    block under ``fold_in(key, rank)``;
   * all-gather ≡ ring ≡ one-device product, blockwise;
   * the fused sharded multiply+decrypt ≡ the staged product and decrypt;
   * the sharded permute, decrypted under the permuted key;
@@ -50,6 +53,8 @@ from csgn_tpu_torch.parallel.ops import (reduce_counts, sharded_decrypt_parity,
                                          sharded_mul_ring, sharded_permute)
 from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.pipeline import mul_chain_sharded
+from csgn_tpu_torch.rng import fold_in
+from csgn_tpu_torch.rng import key as rng_key
 from csgn_tpu_torch.secret_key import SecretKey
 from csgn_tpu_torch.serve import BatchExecutor
 
@@ -111,6 +116,14 @@ def run(workdir=None) -> dict:
     inv = sharded_encrypt_bits_invariant(SEED, bits[mine], *ops, ctx.n, ctx.d, mesh)
     _require(torch.equal(words, whole[:, mine]) and torch.equal(inv, words),
              "sharded encrypt != the one-device encrypt's columns")
+    key = rng_key(SEED)
+    _require(torch.equal(sharded_encrypt_bits_invariant(key, bits[mine], *ops, ctx.n, ctx.d,
+                                                        mesh),
+                         sk.encrypt_batch(bits, key)[:, mine]),
+             "sharded invariant encrypt under a key != the one-device encrypt's columns")
+    _require(torch.equal(sharded_encrypt_bits(key, bits[mine], *ops, ctx.n, ctx.d, mesh),
+                         sk.encrypt_batch(bits[mine], fold_in(key, me))),
+             "sharded encrypt under a key != the block's encrypt under fold_in(key, rank)")
 
     # all-gather ≡ ring ≡ one-device product (this rank's i-block).
     t2 = per * n
@@ -167,7 +180,7 @@ def run(workdir=None) -> dict:
             shutil.rmtree(tmp, ignore_errors=True)
 
     # BatchExecutor on this rank's blocks: per-rank bits XOR to the whole's.
-    ex = BatchExecutor(sk, seed=SEED)
+    ex = BatchExecutor(sk, rng=rng_key(SEED))
     enc_bits = [1, 0, 1, 1, 0]
     enc = [ex.submit_encrypt(b) for b in enc_bits]
     md = [ex.submit_mul_decrypt(Ciphertext(words, ctx), Ciphertext(whole, ctx))

@@ -18,9 +18,12 @@ and gets its own block back.
   * **Decrypt** counts matches locally (K3, or K2 fused with the product)
     and crosses the mesh with one int64 ``all_reduce``; the parity is the
     total mod 2.
-  * **Encrypt** shards the batch axis; a rank's words are exactly the
-    one-device encrypt's columns of its block (the engines take a global
-    column base, `ops.encrypt_kernels`).
+  * **Encrypt** shards the batch axis.  Under a `jax.random` key
+    (`rng.Key`) the two functions are the JAX package's: per-rank
+    ``fold_in`` streams, or one global stream whose block this rank writes
+    (the engine takes a global column base, `ops.encrypt_kernels`).  Under
+    an integer seed (the counter engine) a rank's words are the one-device
+    encrypt's columns of its block in both.
 
 The collectives are `torch.distributed`'s (NCCL on the card, gloo on the
 CPU); they run even on an axis of size 1, so a one-rank job goes through the
@@ -34,6 +37,7 @@ import torch.distributed as dist
 
 from csgn_tpu_torch.ops import dispatch, encrypt_kernels
 from csgn_tpu_torch.parallel.mesh import CHUNK_AXIS, Mesh
+from csgn_tpu_torch.rng import Key, fold_in
 from csgn_tpu_torch.utils.metrics import op_metrics
 
 __all__ = [
@@ -195,40 +199,56 @@ def sharded_permute(words: torch.Tensor, plan, mesh: Mesh, axis: str = CHUNK_AXI
         return dispatch.permute(words, plan)
 
 
-def sharded_encrypt_bits(seed: int, bits: torch.Tensor, key_indices: torch.Tensor,
+def _encrypt_block(name: str, rng, bits, key_indices, mask, valid_mask, mesh: Mesh, axis: str,
+                   invariant: bool) -> torch.Tensor:
+    if bits.device != mesh.device:
+        raise ValueError(f"{name}: bits on {bits.device}, the mesh's ranks hold {mesh.device}")
+    bl, coord = int(bits.shape[0]), mesh.coord(axis)
+    with op_metrics().record("sharded.encrypt", chunks_out=bl,
+                             bytes_moved=bl * mask.shape[0] * 4):
+        if not isinstance(rng, Key):
+            return encrypt_kernels.encrypt_bits_counter(rng, bits, key_indices, mask,
+                                                        valid_mask, col0=coord * bl)
+        if invariant:
+            key, col0, total = rng, coord * bl, mesh.shape[axis] * bl
+        else:
+            key, col0, total = fold_in(rng, coord), 0, bl
+        return encrypt_kernels.encrypt_bits_threefry(key, bits, key_indices, mask, valid_mask,
+                                                     col0=col0, total=total)
+
+
+def sharded_encrypt_bits(rng, bits: torch.Tensor, key_indices: torch.Tensor,
                          mask: torch.Tensor, valid_mask: torch.Tensor, n: int, d: int,
                          mesh: Mesh, axis: str = CHUNK_AXIS) -> torch.Tensor:
-    """Batch-sharded fresh encryption on the counter engine (K4): this
-    rank's block of bits ``[batch/nd]`` -> its block of words
-    ``int32[W, batch/nd]``.
+    """Batch-sharded fresh encryption: this rank's block of bits
+    ``[batch/nd]`` -> its block of words ``int32[W, batch/nd]``.
 
-    The words are exactly the columns ``[i*bl, (i+1)*bl)`` of the one-device
-    ``SecretKey.encrypt_batch(bits, seed, engine="counter")``: the counter
-    stream's column is the global batch index (``col0 = i*bl``), so the
-    result is the same on any number of ranks.  This is stronger than the
-    JAX package's `sharded_encrypt_bits`, whose per-device streams come from
-    `jax.random.fold_in` of the mesh position and differ from the
-    single-device layout by design; a counter-based stream gives
-    mesh-invariance for free, so there is no cheaper variant to keep.
+    With an `rng.Key`, the JAX package's `sharded_encrypt_bits` bit for bit:
+    rank i of the axis encrypts its block on the default engine (K14) under
+    ``fold_in(rng, i)``, as the JAX `shard_map` body does with
+    ``fold_in(rng, axis_index)``, so the words depend on the rank count.
+    With an integer seed, the counter engine (K4) on the global columns
+    ``[i*bl, (i+1)*bl)``: the one-device ``encrypt_batch(bits, seed)``'s
+    columns of the block, on any number of ranks.
     `key_indices`, `mask` and `valid_mask` are `SecretKey.encrypt_operands`;
     `n` and `d` are kept for the JAX signature.
     """
-    if bits.device != mesh.device:
-        raise ValueError(f"sharded_encrypt_bits: bits on {bits.device}, the mesh's ranks "
-                         f"hold {mesh.device}")
-    bl = int(bits.shape[0])
-    with op_metrics().record("sharded.encrypt", chunks_out=bl,
-                             bytes_moved=bl * mask.shape[0] * 4):
-        return encrypt_kernels.encrypt_bits_counter(seed, bits, key_indices, mask, valid_mask,
-                                                    col0=mesh.coord(axis) * bl)
+    return _encrypt_block("sharded_encrypt_bits", rng, bits, key_indices, mask, valid_mask,
+                          mesh, axis, invariant=False)
 
 
-def sharded_encrypt_bits_invariant(seed: int, bits: torch.Tensor, key_indices: torch.Tensor,
+def sharded_encrypt_bits_invariant(rng, bits: torch.Tensor, key_indices: torch.Tensor,
                                    mask: torch.Tensor, valid_mask: torch.Tensor, n: int, d: int,
                                    mesh: Mesh, axis: str = CHUNK_AXIS) -> torch.Tensor:
-    """Batch-sharded encryption whose output is **mesh-invariant**: the same
-    as `sharded_encrypt_bits`, whose words already equal the one-device
-    encrypt's on any number of ranks.  The JAX package needs a second
-    function for this (partitionable threefry under jit, because its
-    fold_in streams depend on the mesh); the name stays for its callers."""
-    return sharded_encrypt_bits(seed, bits, key_indices, mask, valid_mask, n, d, mesh, axis)
+    """Batch-sharded encryption whose output is **mesh-invariant**: this
+    rank's block of the one-device encrypt.
+
+    With an `rng.Key`, the JAX package's `sharded_encrypt_bits_invariant`
+    bit for bit (one global threefry array of the whole batch, as the JAX
+    function draws under jit and shardings): rank i writes the columns
+    ``[i*bl, (i+1)*bl)`` of ``encrypt_batch(all bits, rng)`` (K14).  With
+    an integer seed, the same as `sharded_encrypt_bits` (the counter engine
+    is mesh-invariant already).
+    """
+    return _encrypt_block("sharded_encrypt_bits_invariant", rng, bits, key_indices, mask,
+                          valid_mask, mesh, axis, invariant=True)

@@ -10,14 +10,15 @@ Counterpart of `csgn_tpu.permutation.Permutation` (reference
   * ``p + p.inverse()`` is the identity (reference tests/permutations.cpp:49-53).
 
 The permutation itself is host-side numpy, as in the JAX package.  `random`
-draws from a `torch.Generator` (`torch.randperm`), which cannot reproduce
-`jax.random.permutation`'s draws: tests hand both packages the same arrays.
+draws from an `rng.Key` what `jax.random.permutation` draws from the same
+key, so both packages give the same permutation.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
+
+from csgn_tpu_torch import rng
 
 __all__ = ["Permutation"]
 
@@ -47,10 +48,14 @@ class Permutation:
     # -- constructors -------------------------------------------------------
 
     @classmethod
-    def random(cls, n, generator: torch.Generator) -> "Permutation":
-        """Uniform random permutation of [0, n) from a CPU `torch.Generator`."""
+    def random(cls, n, key: rng.Key) -> "Permutation":
+        """Uniform random permutation of [0, n) from an `rng.Key`:
+        ``jax.random.permutation(key, n)``, the JAX package's
+        `Permutation.random(n, key)` bit for bit."""
         n = getattr(n, "n", n)  # accept a Context or an int
-        return cls(torch.randperm(int(n), generator=generator).numpy())
+        if not isinstance(key, rng.Key):
+            raise TypeError(f"Permutation.random: expected an rng.Key, got {type(key).__name__}")
+        return cls(rng.permutation(key, int(n)))
 
     @classmethod
     def identity(cls, n) -> "Permutation":

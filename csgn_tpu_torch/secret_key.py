@@ -8,14 +8,17 @@ eq-all ``(chunk & mask) == mask`` over its words, then a parity across
 chunks.  The index table, the mask and the context's valid mask live on the
 key's device, where the kernels read them.
 
-Randomness is explicit: `generate` takes a `torch.Generator`, and encryption
-takes an integer seed for one of two counter-based engines
-(`ops.encrypt_kernels`): the counter engine (threefry2x32, the default),
-whose bits are defined independently of the backend, so the same (key, seed,
-bits) encrypt to the same words here and in the JAX package
-(`engine="counter"`), and the Philox engine, the counterpart of the JAX
-package's hardware-PRNG engine.  Keys live on the current CUDA device unless
-``device="cpu"`` is given.
+Randomness is explicit and the JAX package's: `generate` takes an
+`rng.Key` (the counterpart of a `jax.random` key) and draws the indices that
+`csgn_tpu.SecretKey.generate` draws from the same key.  Encryption takes an
+`rng.Key` or an integer seed, and the argument picks the engine
+(`ops.encrypt_kernels`): a key runs the JAX package's default engine,
+"threefry" (K14), and returns the words of `csgn_tpu`'s
+``encrypt_batch(bits, key)``; an integer seed runs the counter engine (K4,
+the JAX package's ``engine="counter"``, the same words too) or, asked for,
+the Philox engine (K7), the counterpart of the JAX package's hardware-PRNG
+engine.  Keys live on the current CUDA device unless ``device="cpu"`` is
+given.
 """
 
 from __future__ import annotations
@@ -31,14 +34,35 @@ from csgn_tpu_torch.circuit import collect_leaves, fold_many, lift, pack_fleet_b
     unpack_fleet_bits
 from csgn_tpu_torch.context import Context
 from csgn_tpu_torch.ops import core, dispatch
-from csgn_tpu_torch.ops.encrypt_kernels import encrypt_bits_counter, encrypt_bits_philox
+from csgn_tpu_torch.ops.encrypt_kernels import encrypt_bits_counter, encrypt_bits_philox, \
+    encrypt_bits_threefry
 from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.plaintext import Plaintext
+from csgn_tpu_torch.rng import Key
 from csgn_tpu_torch.utils.metrics import op_metrics
 
 __all__ = ["SecretKey"]
 
-_ENGINES = {"counter": encrypt_bits_counter, "philox": encrypt_bits_philox}
+_ENGINES = {"threefry": encrypt_bits_threefry, "counter": encrypt_bits_counter,
+            "philox": encrypt_bits_philox}
+
+
+def _engine_for(rng, engine: str | None) -> str:
+    """The engine an encrypt's randomness selects: an `rng.Key` runs
+    "threefry", an integer seed "counter" unless "philox" is asked for; an
+    explicit engine that does not fit the argument raises."""
+    if engine is not None and engine not in _ENGINES:
+        raise ValueError(f"unknown encrypt engine {engine!r}")
+    if isinstance(rng, Key):
+        if engine not in (None, "threefry"):
+            raise ValueError(f"engine {engine!r} takes an integer seed, got an rng.Key")
+        return "threefry"
+    if isinstance(rng, (bool, np.bool_)) or not isinstance(rng, (int, np.integer)):
+        raise TypeError(f"encrypt randomness must be an rng.Key or an integer seed, got "
+                        f"{type(rng).__name__}")
+    if engine == "threefry":
+        raise ValueError("engine 'threefry' takes an rng.Key, got an integer seed")
+    return engine or "counter"
 
 
 class SecretKey:
@@ -69,9 +93,13 @@ class SecretKey:
     # -- constructors -------------------------------------------------------
 
     @classmethod
-    def generate(cls, ctx: Context, generator: torch.Generator, device=None) -> "SecretKey":
-        """Sample a fresh key (uniform d-subset of [0, n), random order)."""
-        return cls(ctx, core.keygen(ctx.n, ctx.d, generator).numpy(), device)
+    def generate(cls, ctx: Context, key: Key, device=None) -> "SecretKey":
+        """Sample a fresh key (uniform d-subset of [0, n), random order) from
+        an `rng.Key`: the indices `csgn_tpu.SecretKey.generate` draws from
+        the same `jax.random` key."""
+        if not isinstance(key, Key):
+            raise TypeError(f"generate: expected an rng.Key, got {type(key).__name__}")
+        return cls(ctx, core.keygen(key, ctx.n, ctx.d).numpy(), device)
 
     # -- properties ---------------------------------------------------------
 
@@ -88,7 +116,7 @@ class SecretKey:
     @property
     def encrypt_operands(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``(key indices int32[d], mask int32[W], valid mask int32[W])`` on
-        the key's device: the key-side arguments of both encrypt engines."""
+        the key's device: the key-side arguments of the encrypt engines."""
         return self._idx_t, self._mask_t, self._valid_t
 
     def size(self) -> int:
@@ -97,29 +125,33 @@ class SecretKey:
 
     # -- encryption ---------------------------------------------------------
 
-    def encrypt(self, plaintext, seed: int) -> Ciphertext:
-        """Encrypt one bit into a fresh single-chunk ciphertext."""
+    def encrypt(self, plaintext, rng) -> Ciphertext:
+        """Encrypt one bit into a fresh single-chunk ciphertext (`rng`: an
+        `rng.Key` or an integer seed, as `encrypt_batch`)."""
         bits = torch.tensor([int(plaintext) & 1], dtype=torch.int32, device=self.device)
-        return Ciphertext(self.encrypt_batch(bits, seed), self.ctx)
+        return Ciphertext(self.encrypt_batch(bits, rng), self.ctx)
 
-    def encrypt_batch(self, bits, seed: int, engine: str = "counter") -> torch.Tensor:
+    def encrypt_batch(self, bits, rng, engine: str | None = None) -> torch.Tensor:
         """Encrypt bits[batch] -> fresh chunk words int32[W, batch].
 
-        engine="counter" (default): threefry2x32 on global counters (K4);
+        The engine follows `rng` (an explicit `engine` that does not fit it
+        raises):
+        an `rng.Key` runs "threefry" (K14), the JAX package's default engine:
+        the words of `csgn_tpu`'s ``encrypt_batch(bits, key)`` for the same
+        `jax.random` key;
+        an integer seed runs "counter" (K4), threefry2x32 on global counters:
         the words depend only on (key, seed, bit, batch index), on any device
         and for any batch size, and equal the JAX package's
-        ``encrypt_batch(..., engine="counter")``.
-        engine="philox": Philox-4x32-10 on global counters (K7), the
-        counterpart of the JAX package's ``engine="pallas"`` (the TPU's
+        ``encrypt_batch(..., engine="counter")``;
+        or, with ``engine="philox"``, Philox-4x32-10 on global counters (K7),
+        the counterpart of the JAX package's ``engine="pallas"`` (the TPU's
         hardware generator): the same invariants, fewer integer operations
         per word; reproducible from (key, seed, bit, batch index) like the
         counter engine, but its bits are its own (ops/encrypt_kernels.py).
         `bits` may be a tensor, an array or a list; it is moved to the key's
         device.
         """
-        fn = _ENGINES.get(engine)
-        if fn is None:
-            raise ValueError(f"unknown encrypt engine {engine!r}")
+        fn = _ENGINES[_engine_for(rng, engine)]
         bits = torch.as_tensor(bits, device=self.device)
         if bits.dim() != 1:
             raise ValueError(f"encrypt_batch expects bits[batch], got shape {tuple(bits.shape)}")
@@ -127,7 +159,7 @@ class SecretKey:
         with op_metrics().record(
             "key.encrypt", chunks_out=batch, bytes_moved=self.ctx.chunk_count_bytes(batch),
         ):
-            return fn(seed, bits, *self.encrypt_operands)
+            return fn(rng, bits, *self.encrypt_operands)
 
     # -- decryption ---------------------------------------------------------
 
@@ -306,10 +338,11 @@ class SecretKey:
             for e, v in zip(exprs, vals)
         ]
 
-    def recrypt(self, ciphertext: Ciphertext, seed: int) -> Ciphertext:
+    def recrypt(self, ciphertext: Ciphertext, rng) -> Ciphertext:
         """Key-side re-encryption: decrypt, then a fresh 1-chunk ciphertext
-        of the same bit (the growth reset of this bounded scheme)."""
-        return self.encrypt(int(self.decrypt(ciphertext)), seed)
+        of the same bit (the growth reset of this bounded scheme); `rng` as
+        `encrypt_batch`."""
+        return self.encrypt(int(self.decrypt(ciphertext)), rng)
 
     # -- permutation --------------------------------------------------------
 

@@ -13,21 +13,20 @@ Semantics:
     `flush()` (or a group reaching `max_batch`, or the first
     `ServeFuture.result()` — results force a flush of everything pending).
   * Execution is deterministic: requests are batched in submission order,
-    and each flush's randomness is a seed derived from (executor seed,
-    stream, flush index) by threefry2x32 (`flush_seed`).  The two streams
-    are the JAX package's: encrypts (`ENCRYPT_STREAM`), and the netlist
-    route's public NOT-constant (`NETLIST_STREAM`, tag 0x6E65); each counts
-    only its own flushes, so re-running the same submissions reproduces
-    every ciphertext.  (The JAX executor derives its keys with
-    `jax.random.fold_in`, whose default engine the port does not match bit
-    for bit; serve-encrypts are therefore held to it by decryption.)
+    and each flush's randomness is derived from the executor's `rng.Key`
+    (default ``rng.key(0)``) as the JAX executor derives it: encrypt flush
+    i encrypts under ``fold_in(rng, i)`` and netlist flush i's public
+    NOT-constant under ``fold_in(fold_in(rng, NETLIST_STREAM), i)`` (tag
+    0x6E65), on the default engine.  Each stream counts only its own
+    flushes, so re-running the same submissions reproduces every
+    ciphertext, and the words equal the JAX executor's for the same key.
   * A request that fails validation at flush fails only its own future.
   * Single-threaded by design — the batching win is launch amortization,
     not host concurrency.  Wrap calls in a lock if driving from many threads.
 
 Example::
 
-    ex = BatchExecutor(sk, seed=0)
+    ex = BatchExecutor(sk, rng=rng.key(0))
     futs = [ex.submit_mul_decrypt(a, b) for a, b in requests]   # no device work
     ex.flush()                                                  # ~1 launch/group
     bits = [f.result()[1] for f in futs]
@@ -49,26 +48,18 @@ from csgn_tpu_torch.models.netlist import (
     eval_homomorphic_batch,
     eval_plain_packed,
 )
-from csgn_tpu_torch.ops.encrypt_kernels import threefry2x32
 from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.pipeline import default_budget_bytes
+from csgn_tpu_torch.rng import Key, fold_in
+from csgn_tpu_torch.rng import key as make_key
 from csgn_tpu_torch.secret_key import SecretKey
 from csgn_tpu_torch.utils.metrics import op_metrics
 
-__all__ = ["BatchExecutor", "ServeFuture", "flush_seed", "ENCRYPT_STREAM", "NETLIST_STREAM"]
+__all__ = ["BatchExecutor", "ServeFuture", "NETLIST_STREAM"]
 
-ENCRYPT_STREAM = 0
 NETLIST_STREAM = 0x6E65   # the JAX executor's fold_in tag for NOT-constants
 
 _M32 = 0xFFFFFFFF
-
-
-def flush_seed(seed: int, stream: int, index: int) -> int:
-    """The 64-bit encrypt seed of flush `index` on `stream`: threefry2x32
-    keyed by `seed`, on the counter (stream, index)."""
-    y0, y1 = threefry2x32(int(seed) & _M32, (int(seed) >> 32) & _M32,
-                          torch.tensor([stream & _M32]), torch.tensor([index & _M32]))
-    return int(y0) | (int(y1) << 32)
 
 
 class ServeFuture:
@@ -120,9 +111,10 @@ class BatchExecutor:
     Args:
       key: `SecretKey` used by encrypt / decrypt / mul_decrypt / netlist /
         circuit requests (pure ciphertext ops work without one).
-      seed: integer seed of the executor's randomness; each flush derives
-        its own seed from it (`flush_seed`), so ciphertexts are reproducible
-        given (seed, submission order).
+      rng: base `rng.Key` of the executor's randomness (default
+        ``rng.key(0)``, as the JAX executor's ``jax.random.key(0)``); each
+        flush folds in its index, so ciphertexts are reproducible given
+        (rng, submission order) and equal the JAX executor's.
       max_batch: a group reaching this many requests flushes immediately
         (bounds peak device memory for the stacked batch); None = unbounded.
       netlist_budget_bytes: materialization budget enforced by the
@@ -135,14 +127,16 @@ class BatchExecutor:
         self,
         key: SecretKey | None = None,
         *,
-        seed: int = 0,
+        rng: Key | None = None,
         max_batch: int | None = 4096,
         netlist_budget_bytes: "int | None" = ...,  # ... = the key device's default
     ):
         if netlist_budget_bytes is ...:
             netlist_budget_bytes = default_budget_bytes(key.device if key else "cpu")
+        if rng is not None and not isinstance(rng, Key):
+            raise TypeError(f"BatchExecutor: rng must be an rng.Key, got {type(rng).__name__}")
         self._key = key
-        self._seed = int(seed)
+        self._rng = make_key(0) if rng is None else rng
         self._max_batch = max_batch
         self._netlist_budget = netlist_budget_bytes
         self._groups: dict[tuple, list[tuple]] = {}
@@ -311,9 +305,9 @@ class BatchExecutor:
     def _run_enc(self, payloads: list[tuple]) -> list[Ciphertext]:
         sk = self._need_key("encrypt")
         bits = torch.tensor([p[0] for p in payloads], dtype=torch.int32)
-        seed = flush_seed(self._seed, ENCRYPT_STREAM, self._enc_flushes)
+        subkey = fold_in(self._rng, self._enc_flushes)
         self._enc_flushes += 1
-        batch = CiphertextBatch.from_fresh(sk.encrypt_batch(bits, seed), sk.ctx)  # [W, B]
+        batch = CiphertextBatch.from_fresh(sk.encrypt_batch(bits, subkey), sk.ctx)  # [W, B]
         return [batch[i] for i in range(len(payloads))]
 
     def _run_add(self, payloads: list[tuple]) -> list[Ciphertext]:
@@ -346,7 +340,7 @@ class BatchExecutor:
     def _run_net(self, payloads: list[tuple]) -> list[list[list[Ciphertext]]]:
         sk = self._need_key("netlist")
         netlist = payloads[0][0]  # the group key pins one netlist per group
-        one = sk.encrypt(1, flush_seed(self._seed, NETLIST_STREAM, self._net_flushes))
+        one = sk.encrypt(1, fold_in(fold_in(self._rng, NETLIST_STREAM), self._net_flushes))
         self._net_flushes += 1
         # Deep circuits explode materialized growth: the budget check rejects
         # them before the first superlinear multiply allocates.

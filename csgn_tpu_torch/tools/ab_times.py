@@ -9,7 +9,8 @@ within one call on the card, so both see the same card and clock.  Each
 figure is the ms per call of a run of five launches over distinct inputs
 after one untimed call (CUDA events), three runs a kernel:
 
-  * ``encrypt``: K4 (counter engine) and K7 (Philox) at Context(1247, 16),
+  * ``encrypt``: K4 (counter engine), K7 (Philox) and, where the tree has
+    it, K14 (the JAX package's default engine) at Context(1247, 16),
     40 x 2^22, K7 also on each of its paths forced (tile, column) where the
     tree has them, and K13 (the Philox stream dump) at 130 x 2^20;
   * ``benes``: K8 on the register path at n = 1247 over 2^20 chunks, alone
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 import csgn_tpu_torch
-from csgn_tpu_torch import Context, Permutation, SecretKey
+from csgn_tpu_torch import Context, Permutation, SecretKey, rng
 from csgn_tpu_torch.ops import benes_kernels, encrypt_kernels
 
 
@@ -74,12 +75,15 @@ def encrypt_times(dev) -> dict:
         forced = getattr(encrypt_kernels, "_philox_cuda", None)
         out[f"k7_{path}"] = "no forced paths in this tree" if forced is None else [
             run_ms(lambda s: forced(s, *args, path=path), seeds) for _ in range(3)]
+    k14 = getattr(encrypt_kernels, "encrypt_bits_threefry", None)
+    out["k14"] = "no K14 in this tree" if k14 is None else [
+        run_ms(lambda k: k14(k, *args), [rng.key(s) for s in seeds]) for _ in range(3)]
     return out
 
 
 def benes_times(dev) -> dict:
     ctx = Context(1247, 16)
-    plan = Permutation.random(ctx, torch.Generator().manual_seed(20261016)).benes_plan()
+    plan = Permutation.random(ctx, rng.key(20261016)).benes_plan()
     xs = _words(ctx, 1 << 20, 5, dev)
     k8 = lambda x: benes_kernels.apply_benes(x, plan)  # noqa: E731
     out = {"k8": [run_ms(k8, xs) for _ in range(3)], "k8_after_plain": []}
@@ -92,10 +96,9 @@ def benes_times(dev) -> dict:
 def benes_wide_times(dev) -> dict:
     n = 20000
     ctx = Context(n, 16)
-    gen = torch.Generator().manual_seed(5)
-    p = Permutation.random(n, gen)
+    p = Permutation.random(n, rng.key(5))
     plan = p.benes_plan()
-    sk = SecretKey(ctx, torch.randperm(n, generator=gen)[:ctx.d].numpy(), dev)
+    sk = SecretKey.generate(ctx, rng.key(6), dev)
     key = sk.apply_permutation(p).mask_words
     xs = _words(ctx, 1 << 14, 5, dev)
     if not torch.equal(benes_kernels.apply_benes(xs[0], plan),
@@ -116,7 +119,7 @@ def benes_lanes_times(dev, forced) -> dict:
     for n, chunks in ((2049, 1 << 20), (4095, 1 << 20), (8191, 1 << 20), (16383, 1 << 20),
                       (20000, 1 << 14), (40000, 1 << 14)):
         ctx = Context(n, 16)
-        plan = Permutation.random(n, torch.Generator().manual_seed(n)).benes_plan()
+        plan = Permutation.random(n, rng.key(n)).benes_plan()
         xs = _words(ctx, chunks, 5, dev)
         ops = benes_kernels.network_ops(plan) * chunks  # the operation bound, 132 SMs x 64 lanes
         row = {"path": benes_kernels.benes_path(plan.words_pad),

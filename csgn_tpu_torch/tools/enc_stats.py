@@ -35,6 +35,7 @@ import sys
 import numpy as np
 import torch
 
+from csgn_tpu_torch import rng
 from csgn_tpu_torch._device import resolve_device
 from csgn_tpu_torch.context import Context
 from csgn_tpu_torch.ops import encrypt_kernels as ek
@@ -62,12 +63,13 @@ def _chi2(r: torch.Tensor, d: int) -> tuple[float, list[int]]:
 
 
 def run(ctx: Context, batch: int, seed: int, device=None, key_seed: int = 3) -> dict:
-    """Every check at `ctx` over `batch` columns of zero-encryptions under a
-    key drawn from `key_seed`; returns the figures, ``failed`` (the names of
+    """Every check at `ctx` over `batch` columns of zero-encryptions under
+    the secret key drawn from ``rng.key(key_seed)`` (the JAX tool's
+    ``jax.random.key(3)`` by default); returns the figures, ``failed`` (the names of
     the checks that failed) and ``ok``."""
     device = resolve_device(device)
     w, d = ctx.words32, ctx.d
-    sk = SecretKey.generate(ctx, torch.Generator().manual_seed(key_seed), device)
+    sk = SecretKey.generate(ctx, rng.key(key_seed), device)
     key_idx, mask, valid = sk.encrypt_operands
     bits0 = torch.zeros(batch, dtype=torch.int32, device=device)
 

@@ -34,9 +34,9 @@ column_variant(const int32_t* __restrict__ bits, const int32_t* __restrict__ key
   if (j >= batch) return;
   const Philox gen{k0, k1, static_cast<uint32_t>(col0 + j)};
   const bool one = (bits[j] & 1) != 0;
-  uint32_t row_w, row_w1;
-  gen.tail(w, row_w, row_w1);
-  const int32_t pos = key_idx[row_w % static_cast<uint32_t>(d)];
+  uint32_t r, coin;
+  gen.select(w, static_cast<uint32_t>(d), r, coin);
+  const int32_t pos = key_idx[r];
   const int64_t r_word = pos >> 5;
   const uint32_t r_bit = 1u << (31 - (pos & 31));
   bool others_one = true;
@@ -64,7 +64,7 @@ column_variant(const int32_t* __restrict__ bits, const int32_t* __restrict__ key
       }
     }
   }
-  if (!others_one && (row_w1 & 1u) && col0 < 0) out[0] = 1;  // keeps the test; col0 >= 0
+  if (!others_one && coin && col0 < 0) out[0] = 1;  // keeps the test; col0 >= 0
 }
 
 // (d): the tile path's staging, generator and fix-up (`tile_stage`,

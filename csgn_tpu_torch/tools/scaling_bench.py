@@ -38,6 +38,7 @@ import torch.distributed as dist
 from csgn_tpu_torch import Context, SecretKey, parallel
 from csgn_tpu_torch._device import resolve_device
 from csgn_tpu_torch.layout import words_from_numpy
+from csgn_tpu_torch.rng import key as rng_key
 from csgn_tpu_torch.tools._jobs import job, start_ranks, wait_ranks
 
 MODULE = "csgn_tpu_torch.tools.scaling_bench"
@@ -59,7 +60,7 @@ def measure(dev: torch.device, chunks: int, t2: int) -> dict:
     ca, cb = chunks // nd, t2 // nd
     a_blk = words_from_numpy(np.ascontiguousarray(a[:, me * ca:(me + 1) * ca]), dev)
     b_blk = words_from_numpy(np.ascontiguousarray(b[:, me * cb:(me + 1) * cb]), dev)
-    sk = SecretKey.generate(ctx, torch.Generator().manual_seed(0), dev)
+    sk = SecretKey.generate(ctx, rng_key(0), dev)   # the JAX tool's jax.random.key(0)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     barrier_on = {"device_ids": [dev.index]} if dev.type == "cuda" else {}
 

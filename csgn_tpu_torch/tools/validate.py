@@ -19,10 +19,13 @@ the case made (`kernels.LAUNCHES`; "plain" on the CPU).  Cases:
     fused-envelope case, then chained: a 60,000-chunk product times two
     chunks;
   * the batched permute with four plans (K9), per element against the gather;
-  * the Philox encrypt (K7): words equal to its plain version, canonical,
-    decrypting to the bits;
-  * end to end: 2^20 bits encrypted (K4), multiplied by a two-chunk
-    ciphertext, both decrypted, with the time taken.
+  * the Philox encrypt (K7) and the default engine's (K14): words equal to
+    the plain version, canonical, decrypting to the bits;
+  * end to end: 2^20 bits encrypted under ``rng.key(2)`` (K14), multiplied
+    by a two-chunk ciphertext encrypted under ``rng.key(3)``, both
+    decrypted, with the time taken.
+
+The secret key is the JAX sweep's, drawn from ``rng.key(1)``.
 
 ``--small`` cuts every shape class to sizes the CPU runs in seconds.
 
@@ -40,12 +43,12 @@ import time
 import numpy as np
 import torch
 
-from csgn_tpu_torch import Ciphertext, Context, Permutation, SecretKey
+from csgn_tpu_torch import Ciphertext, Context, Permutation, SecretKey, rng
 from csgn_tpu_torch._device import resolve_device
 from csgn_tpu_torch.layout import words_from_numpy
 from csgn_tpu_torch.ops import core, dispatch, kernels
+from csgn_tpu_torch.ops import encrypt_kernels as ek
 from csgn_tpu_torch.ops import permute_benes as pb
-from csgn_tpu_torch.ops.encrypt_kernels import encrypt_bits_philox, encrypt_bits_philox_plain
 
 # The JAX sweep's shapes (tools/tpu_validate.py:40-192), and a cut of each
 # class for the CPU.
@@ -59,7 +62,7 @@ FULL = {
                    (37, 63)],
     "chained": (20000, 3, 2),
     "kperm": (4, 4096),
-    "philox": 4096,
+    "encrypt": 4096,
     "e2e": 1 << 20,
 }
 SMALL = {
@@ -71,7 +74,7 @@ SMALL = {
     "fused_auto": [(4096, 5), (1311, 3), (7, 700), (1000, 3), (100, 20), (51, 129), (37, 63)],
     "chained": (200, 3, 2),
     "kperm": (4, 129),
-    "philox": 4096,
+    "encrypt": 4096,
     "e2e": 1 << 14,
 }
 
@@ -84,7 +87,7 @@ class Sweep:
         self.dev = dev
         self.ctx = Context(1247, 16)
         self.rng = np.random.default_rng(0)
-        self.sk = SecretKey.generate(self.ctx, torch.Generator().manual_seed(1), dev)
+        self.sk = SecretKey.generate(self.ctx, rng.key(1), dev)
         self.mask = self.sk.mask_words
         self.fails: list = []
 
@@ -189,16 +192,21 @@ class Sweep:
                  for i, p in enumerate(perms))
         self.report(f"batched multi-perm k={k} chunks={chunks}", ok, before)
 
-    def philox(self, batch: int) -> None:
+    def encrypt(self, batch: int) -> None:
+        """The Philox engine (seed 1234) and the default engine (key 1234)
+        against their plain versions, round trip and canonical form."""
         bits = torch.from_numpy(self.rng.integers(0, 2, batch).astype(np.int32)).to(self.dev)
         ops = self.sk.encrypt_operands
-        before = dict(kernels.LAUNCHES)
-        words = encrypt_bits_philox(1234, bits, *ops)
-        valid = ops[2]
-        ok = (torch.equal(words, encrypt_bits_philox_plain(1234, bits, *ops))
-              and torch.equal(self.sk.decrypt_batch(words), bits)
-              and not bool((words & ~valid[:, None]).any()))
-        self.report(f"philox encrypt {batch} round trip+canonical", ok, before)
+        for name, fn, plain, r in (
+                ("philox", ek.encrypt_bits_philox, ek.encrypt_bits_philox_plain, 1234),
+                ("threefry", ek.encrypt_bits_threefry, ek.encrypt_bits_threefry_plain,
+                 rng.key(1234))):
+            before = dict(kernels.LAUNCHES)
+            words = fn(r, bits, *ops)
+            ok = (torch.equal(words, plain(r, bits, *ops))
+                  and torch.equal(self.sk.decrypt_batch(words), bits)
+                  and not bool((words & ~ops[2][:, None]).any()))
+            self.report(f"{name} encrypt {batch} round trip+canonical", ok, before)
 
     def e2e(self, batch: int) -> float:
         """`batch` bits encrypted, times a [1, 0] ciphertext, both decrypted;
@@ -209,8 +217,8 @@ class Sweep:
         before = dict(kernels.LAUNCHES)
         sync()
         t0 = time.perf_counter()
-        big = Ciphertext(sk.encrypt_batch(big_bits, 2), ctx)
-        op = Ciphertext(sk.encrypt_batch(np.array([1, 0], np.int32), 3), ctx)
+        big = Ciphertext(sk.encrypt_batch(big_bits, rng.key(2)), ctx)
+        op = Ciphertext(sk.encrypt_batch(np.array([1, 0], np.int32), rng.key(3)), ctx)
         prod = big * op
         d_big, d_op, d_prod = int(sk.decrypt(big)), int(sk.decrypt(op)), int(sk.decrypt(prod))
         sync()
@@ -236,7 +244,7 @@ def main(small: bool = False, device=None) -> int:
     s.fused_auto(shapes["fused_auto"])
     s.chained(*shapes["chained"])
     s.kperm(*shapes["kperm"])
-    s.philox(shapes["philox"])
+    s.encrypt(shapes["encrypt"])
     s.e2e(shapes["e2e"])
     print("FAILS:", s.fails or "none")
     return 1 if s.fails else 0

@@ -17,6 +17,7 @@ import pathlib
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,7 +32,7 @@ from csgn_tpu.models.netlist import eval_plain as jeval_plain
 from csgn_tpu.ops import core as jcore
 from csgn_tpu.secret_key import SecretKey as JSecretKey
 from csgn_tpu.serve import BatchExecutor as JBatchExecutor
-from csgn_tpu_torch import bench, convert
+from csgn_tpu_torch import bench, convert, rng
 from csgn_tpu_torch.context import Context
 from csgn_tpu_torch.layout import words_from_numpy, words_to_numpy
 from csgn_tpu_torch.models.aes import aes128
@@ -131,11 +132,12 @@ def test_permute_guard_equals_the_jax_gather(ops):
 
 
 def test_serve_bits_equal_the_jax_executor(ops):
-    indices = bench.key_indices(CTX)
-    sk = convert.secret_key_from_numpy(CTX, indices, "cpu")
+    sk = bench.secret_key(CTX, "cpu")
+    jsk = JSecretKey.generate(JCTX, jax.random.key(0))          # bench.py:307
+    assert np.array_equal(sk.indices, jsk.indices)
     pairs = bench.serve_pairs(CTX, ops.pw, "cpu")
     loop, flush = bench.serve_loop(sk, pairs), bench.serve_flush(sk, pairs)
-    ex = JBatchExecutor(JSecretKey(JCTX, indices))
+    ex = JBatchExecutor(jsk)
     futs = [ex.submit_mul_decrypt(JCiphertext(jnp.asarray(ops.pw[2 * i]), JCTX),
                                   JCiphertext(jnp.asarray(ops.pw[2 * i + 1]), JCTX))
             for i in range(len(ops.pw) // 2)]
@@ -144,9 +146,10 @@ def test_serve_bits_equal_the_jax_executor(ops):
 
 
 def test_aes_fleet_blocks_at_a_small_fleet():
-    sk = convert.secret_key_from_numpy(CTX, bench.key_indices(CTX), "cpu")
+    sk = bench.secret_key(CTX, "cpu")
     netlist, bit_mat = aes128(), bench.aes_fleet_inputs(3)
-    blocks = bench.aes_fleet_blocks(sk, netlist, bit_mat, sk.encrypt(1, 0xF1), 0xF2)
+    blocks = bench.aes_fleet_blocks(sk, netlist, bit_mat, sk.encrypt(1, rng.key(0xF1)),
+                                    rng.key(0xF2))
     assert blocks[0].hex() == bench.FIPS197_C1
     assert blocks == bench.aes_fleet_plain(netlist, bit_mat)
     key1 = bytes((7 + i) % 256 for i in range(16))

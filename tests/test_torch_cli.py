@@ -13,7 +13,7 @@ from csgn_tpu import cli as jcli
 from csgn_tpu.config import RunConfig as JRunConfig
 from csgn_tpu.utils import checks as jchecks
 from csgn_tpu_torch import Ciphertext, Context, RunConfig, SecretKey, cli
-from csgn_tpu_torch.layout import words_from_numpy
+from csgn_tpu_torch.layout import words_from_numpy, words_to_numpy
 from csgn_tpu_torch.utils import checks
 from csgn_tpu_torch.utils.timing import Timer, device_median_time
 
@@ -71,11 +71,46 @@ def test_cli_timings_rows(capsys, tmp_path):
         assert row in out, row
 
 
-def test_cli_flagship_matches_the_jax_cli(capsys):
+def _record(monkeypatch) -> dict:
+    """Every encrypt's (key indices, words) and every key transform's
+    permutation, of both packages' SecretKey, in call order."""
+    logs = {"port": [], "jax": []}
+    for side, cls, to_np in (("port", SecretKey, words_to_numpy), ("jax", J.SecretKey, np.asarray)):
+        def encrypt_batch(self, *args, _orig=cls.encrypt_batch, _log=logs[side], _np=to_np,
+                          **kw):
+            words = _orig(self, *args, **kw)
+            _log.append(("encrypt", self.indices.tolist(), _np(words).tolist()))
+            return words
+
+        def apply_permutation(self, p, _orig=cls.apply_permutation, _log=logs[side]):
+            _log.append(("permutation", np.asarray(p.perm).tolist()))
+            return _orig(self, p)
+
+        monkeypatch.setattr(cls, "encrypt_batch", encrypt_batch)
+        monkeypatch.setattr(cls, "apply_permutation", apply_permutation)
+    return logs
+
+
+@pytest.mark.parametrize("command", ["demo", "selftest"])
+def test_cli_keys_and_words_equal_the_jax_cli(monkeypatch, capsys, command):
+    """The same seed gives the same secret keys, ciphertext words and
+    permutations in both CLIs: the keys are split from rng.key(seed) as from
+    jax.random.key(seed)."""
+    logs = _record(monkeypatch)
+    assert cli.main([command, *SMALL, "--seed", "5"]) == 0
+    assert jcli.main([command, "--n", "95", "--d", "4", "--seed", "5"]) == 0
+    capsys.readouterr()
+    assert len(logs["port"]) == {"demo": 3, "selftest": 1}[command]
+    assert logs["port"] == logs["jax"]
+
+
+def test_cli_flagship_matches_the_jax_cli(monkeypatch, capsys):
+    logs = _record(monkeypatch)
     assert cli.main(["flagship", *SMALL]) == 0
     out = capsys.readouterr().out
     assert jcli.main(["flagship", "--n", "95", "--d", "4"]) == 0
     jout = capsys.readouterr().out
+    assert len(logs["port"]) == 3 and logs["port"] == logs["jax"]
 
     def hexes(text):
         return re.findall(r"homomorphically = ([0-9a-f]+)", text)

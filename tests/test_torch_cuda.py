@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from csgn_tpu_torch import Ciphertext, CiphertextBatch, Context, Permutation, SecretKey
+from csgn_tpu_torch import Ciphertext, CiphertextBatch, Context, Permutation, SecretKey, rng
 from csgn_tpu_torch.layout import words_from_numpy
 from csgn_tpu_torch.ops import benes_kernels, encrypt_kernels, kernels
 from csgn_tpu_torch.ops import core
@@ -132,7 +132,7 @@ def test_launch_counters_count_kernel_launches(dev):
     sk.decrypt(c)
     sk.mul_and_decrypt(c, c)
     c * c
-    p = Permutation.random(CTX, torch.Generator().manual_seed(1))
+    p = Permutation.random(CTX, rng.key(1))
     cc = c.apply_permutation(p)
     b = CiphertextBatch.stack([c, cc])
     sk.decrypt_batch(b * b)
@@ -142,10 +142,12 @@ def test_launch_counters_count_kernel_launches(dev):
     kernels.chunk_matches(b.wt, sk.mask_words)
     # Every product above has t1*t2 % 4 == 0, so the multiply's aligned mode
     # serves it; the unaligned and tiled modes count under their own keys.
-    # The Philox engine, its stream dump, the write anchor and the Beneš
+    # The Philox engine, its stream dump, the default engine (K14; the
+    # encrypt above takes an integer seed), the write anchor and the Beneš
     # kernel's lane-group and wide paths (n > 2048) are not called.
     unused = ("encrypt_bits_philox", "philox_tile", "philox_tile_4byte", "philox_column",
-              "philox_streams", "fill_anchor", "benes_lanes", "benes_wide")
+              "philox_streams", "encrypt_bits_threefry", "fill_anchor", "benes_lanes",
+              "benes_wide")
     for name in before:
         want = before[name] + (0 if name in unused or name.endswith((
             "_unaligned", "_tiled", "_unaligned_batched", "_tiled_batched")) else 1)
@@ -447,7 +449,7 @@ def test_chain_circuit_and_serve_on_card_equal_cpu(dev):
         chain, bit = pipeline.mul_chain_decrypt(cts, sk)
         fleet = CiphertextBatch.stack([cts[0], cts[2]])
         dag = sk.decrypt_circuit(lift(fleet) * fleet + cts[1])
-        ex = BatchExecutor(sk, seed=4)
+        ex = BatchExecutor(sk, rng=rng.key(4))
         add = ex.submit_netlist(nl.adder(2), [[cts[0], cts[1]], [cts[2], cts[0]]])
         enc = ex.submit_encrypt(1)
         md = ex.submit_mul_decrypt(cts[0], cts[1])
@@ -501,6 +503,36 @@ def test_philox_k7_k13_match_plain(dev, w, d, batch):
     want = encrypt_kernels.philox_streams_plain(seed, batch, w + 2, dev).to(torch.int32)
     assert torch.equal(rows, want)
     assert torch.equal(encrypt_kernels.derive_words(rows.long() & 0xFFFFFFFF, bits, *ops), got)
+
+
+@pytest.mark.parametrize("w", [3, 4, 7, 40, 128])
+@pytest.mark.parametrize("d", [4, 16, 32])
+@pytest.mark.parametrize("batch", [1, 255, 257, 4099])
+@pytest.mark.parametrize("col0", [0, 4099])
+def test_threefry_k14_matches_plain(dev, w, d, batch, col0):
+    """K14 at columns [col0, col0 + batch) of a batch + col0-column encrypt:
+    its plain version's words, the bits back, the padding bits zero."""
+    ops = _philox_operands(w, d, dev, w * 100 + d)
+    bits = torch.from_numpy(np.random.default_rng(batch).integers(0, 2, batch)).to(dev)
+    key = rng.key((w << 20) + batch)
+    before = encrypt_kernels.LAUNCHES["encrypt_bits_threefry"]
+    got = encrypt_kernels.encrypt_bits_threefry(key, bits, *ops, col0=col0, total=col0 + batch)
+    assert encrypt_kernels.LAUNCHES["encrypt_bits_threefry"] == before + 1
+    assert torch.equal(got, encrypt_kernels.encrypt_bits_threefry_plain(
+        key, bits, *ops, col0=col0, total=col0 + batch))
+    assert torch.equal(kernels.chunk_matches(got, ops[1]), bits.to(torch.int32))
+    assert not (got & ~ops[2][:, None]).any()
+
+
+def test_default_engine_through_the_key_on_card_equals_cpu(dev):
+    """`encrypt_batch` under an rng.Key on the card: the CPU path's words
+    (held to csgn_tpu by the CPU tests)."""
+    bits = np.random.default_rng(7).integers(0, 2, 3000).astype(np.int32)
+    cpu = SecretKey.generate(CTX, rng.key(7), "cpu")
+    gpu = SecretKey.generate(CTX, rng.key(7), dev)
+    assert np.array_equal(cpu.indices, gpu.indices)
+    assert torch.equal(gpu.encrypt_batch(bits, rng.key(8)).cpu(),
+                       cpu.encrypt_batch(bits, rng.key(8)))
 
 
 PHILOX_T = encrypt_kernels.PHILOX_TILE_COLS
@@ -838,12 +870,17 @@ def test_sharded_ops_at_world_size_one_equal_the_unsharded_calls(dev, nccl_world
     _, want = sk.mul_and_decrypt(a, b)
     assert torch.equal(words, prod.wt) and int(parity) == int(want)
     assert int(par.sharded_decrypt_parity(prod.wt, m, mesh)) == int(sk.decrypt(prod))
-    p = Permutation.random(CTX, torch.Generator().manual_seed(3))
+    p = Permutation.random(CTX, rng.key(3))
     assert torch.equal(par.sharded_permute(prod.wt, p.benes_plan(), mesh),
                        prod.apply_permutation(p).wt)
     bits = torch.from_numpy((np.arange(300) % 5 == 0).astype(np.int32)).to(dev)
     enc = par.sharded_encrypt_bits(4, bits, *sk.encrypt_operands, CTX.n, CTX.d, mesh)
     assert torch.equal(enc, sk.encrypt_batch(bits, 4))
+    enc = par.sharded_encrypt_bits(rng.key(4), bits, *sk.encrypt_operands, CTX.n, CTX.d, mesh)
+    assert torch.equal(enc, sk.encrypt_batch(bits, rng.fold_in(rng.key(4), 0)))
+    enc = par.sharded_encrypt_bits_invariant(rng.key(4), bits, *sk.encrypt_operands, CTX.n,
+                                             CTX.d, mesh)
+    assert torch.equal(enc, sk.encrypt_batch(bits, rng.key(4)))
     chain, cp = mul_chain_sharded_decrypt([a, b, c], sk, mesh)
     want_chain, want_p = mul_chain_decrypt([a, b, c], sk)
     assert torch.equal(chain.wt, want_chain.wt) and int(cp) == int(want_p)

@@ -4,10 +4,11 @@ Each case runs the JAX package's ``examples/<name>.py`` (JAX on the CPU,
 through the conftest's 8-device virtual mesh) and
 ``csgn_tpu_torch.examples.<name>`` with ``device="cpu"``, at the parameters
 of tests/test_examples.py, and requires the two returned dicts to be equal on
-every key that no random draw sets.  Keys and encryption randomness cannot be
-matched between the packages (their generators differ), so the keys a draw
-sets (the votes, the bids) are held to their plaintext expectations instead;
-the examples assert their own decrypts as well.  Tolerance: exact.
+every key but the host timings (``build_s``, ``eval_s``, ``decrypt_s``): the
+port draws its keys, votes and bids from ``rng.key(seed)`` as the JAX
+examples draw them from ``jax.random.key(seed)``, so the values a draw sets
+are the same too; the examples assert their own decrypts as well.
+Tolerance: exact.
 """
 
 import importlib.util
@@ -35,70 +36,41 @@ def _port_example(name: str):
     return importlib.import_module(f"csgn_tpu_torch.examples.{name}")
 
 
-def _check_voting(out, kw):
-    assert out["voters"] == kw["voters"]
-    assert out["parity"] == out["yes_votes"] % 2
-    assert out["unanimous"] == int(out["yes_votes"] == out["voters"])
+# Host wall times, the only keys that differ between two runs.
+TIMINGS = {"build_s", "eval_s", "decrypt_s"}
 
-
-def _check_netlist_service(out, kw):
-    from csgn_tpu_torch.examples.netlist_service import auction
-
-    bids, reserve = auction(kw["bidders"], kw["width"], kw.get("seed", 0))
-    assert out["reserve"] == reserve
-    assert out["qualified"] == [int(b > reserve) for b in bids]
-
-
-def _check_aes(out, kw):
-    assert out["ciphertext"] == "69c4e0d86a7b0430d8cdb78070b4c55a"    # FIPS-197 C.1
-    assert out["ands"] == 51_200
-
-
-def _check_hmac(out, kw):
-    import hmac
-
-    assert out["tag"] == hmac.new(bytes(range(32)), b"attested by csgn_tpu", "sha256").hexdigest()
-
-
-# name: arguments (both packages), draw-independent keys, the check of the
-# port's other keys against their plaintext expectations
+# name: arguments (both packages)
 CASES = {
-    "voting": (dict(voters=16, n=95, d=4), ["voters"], _check_voting),
-    "deep_chain_12": (dict(depth=12, recrypt_at=256),
-                      ["depth", "final_chunks", "peak_chunks", "recrypts",
-                       "unbounded_chunks_would_be", "decrypted"], None),
-    "deep_chain_32": (dict(depth=32, recrypt_at=1024),
-                      ["depth", "final_chunks", "peak_chunks", "recrypts",
-                       "unbounded_chunks_would_be", "decrypted"], None),
-    "key_rotation": (dict(fleet=6, n=95, d=4), ["fleet", "decrypted", "expected"], None),
-    "bristol_adder": (dict(x=2**63 + 12345, y=2**63 + 99999),
-                      ["x", "y", "sum", "gates", "and_gates", "materialized_growth_max",
-                       "decrypted_bits_checked"], None),
-    "netlist_service": (dict(bidders=6, width=8, n=95, d=4),
-                        ["bidders", "encrypt_dispatches", "and_gates"], _check_netlist_service),
-    "encrypted_aes": (dict(n=95, d=4), ["ciphertext", "gates", "ands"], _check_aes),
-    "encrypted_hmac": (dict(n=95, d=4), ["tag", "compressions"], _check_hmac),
+    "voting": dict(voters=16, n=95, d=4),
+    "deep_chain_12": dict(depth=12, recrypt_at=256),
+    "deep_chain_32": dict(depth=32, recrypt_at=1024),
+    "key_rotation": dict(fleet=6, n=95, d=4),
+    "bristol_adder": dict(x=2**63 + 12345, y=2**63 + 99999),
+    "netlist_service": dict(bidders=6, width=8, n=95, d=4),
+    "encrypted_aes": dict(n=95, d=4),
+    "encrypted_hmac": dict(n=95, d=4),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_port_example_returns_the_jax_examples_values(case):
-    kw, same, check = CASES[case]
+    kw = CASES[case]
     name = case.rsplit("_", 1)[0] if case.startswith("deep_chain") else case
     got = _port_example(name).main(**kw, device="cpu")
     want = _jax_example(name).main(**kw)
     assert set(got) == set(want)
-    assert {k: got[k] for k in same} == {k: want[k] for k in same}
-    if check is not None:
-        check(got, kw)
+    assert {k: v for k, v in got.items() if k not in TIMINGS} == \
+        {k: v for k, v in want.items() if k not in TIMINGS}
 
 
 _RANK = """
 import json, sys
+import torch
 from csgn_tpu_torch import parallel
 from csgn_tpu_torch.examples import sharded_pipeline
 parallel.initialize(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), device="cpu")
-print(json.dumps(sharded_pipeline.main(batch=16, n=95, d=4, device="cpu")))
+print(json.dumps(sharded_pipeline.main(batch=16, n=95, d=4, device="cpu")), flush=True)
+torch.distributed.destroy_process_group()
 """
 
 
@@ -123,15 +95,16 @@ def _gloo_job(world: int, tmp: pathlib.Path) -> list[dict]:
 @pytest.mark.parametrize("world", [1, 2])
 def test_sharded_pipeline_over_a_gloo_job(world, tmp_path):
     """Every rank of a gloo job of `world` CPU processes returns the same
-    dict; its draw-independent keys equal the JAX example's on its 8-device
-    virtual mesh (the rank count differs: ``devices``)."""
+    dict; every key equals the JAX example's on its 8-device virtual mesh
+    but the rank count, ``devices`` (the mesh-invariant encrypt makes the
+    words independent of it)."""
     outs = _gloo_job(world, tmp_path)
     assert all(o == outs[0] for o in outs)
     want = _jax_example("sharded_pipeline").main(batch=16, n=95, d=4)
     got = outs[0]
     assert got["devices"] == world and want["devices"] == 8
-    same = ["batch", "product_chunks", "parity"]
-    assert {k: got[k] for k in same} == {k: want[k] for k in same}
+    assert {k: v for k, v in got.items() if k != "devices"} == \
+        {k: v for k, v in want.items() if k != "devices"}
     assert got["product_chunks"] == got["batch"] ** 2
 
 

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from csgn_tpu_torch import Ciphertext, Context, Permutation, SecretKey
+from csgn_tpu_torch import Ciphertext, Context, Permutation, SecretKey, rng
 from csgn_tpu_torch.layout import words_from_numpy
 from csgn_tpu_torch.ops import benes_kernels, encrypt_kernels, kernels
 from csgn_tpu_torch.ops import permute_benes as pb
@@ -145,7 +145,7 @@ def test_entry_points_default_to_the_card():
     words = np.zeros((CTX.words32, 2), np.uint32)
     calls = [
         lambda: SecretKey(CTX, [1, 5, 9, 70]),
-        lambda: SecretKey.generate(CTX, torch.Generator().manual_seed(0)),
+        lambda: SecretKey.generate(CTX, rng.key(0)),
         lambda: Ciphertext.from_u64(np.zeros(2 * CTX.words64, np.uint64), CTX),
         lambda: Ciphertext.from_chunk_major(words.T, CTX),
         lambda: convert.secret_key_from_numpy(CTX, [1, 5, 9, 70]),
@@ -221,7 +221,7 @@ def test_decrypt_batch_guards():
 
 
 def test_benes_wrappers_reject_bad_operands():
-    plan = Permutation.random(CTX, torch.Generator().manual_seed(0)).benes_plan()
+    plan = Permutation.random(CTX, rng.key(0)).benes_plan()
     words, mask = _words(5), words_from_numpy(CTX.valid_mask, device="cpu")
     stacked = pb.stack_plans([plan, plan])
     assert benes_kernels.apply_benes(words, plan).shape == words.shape

@@ -8,6 +8,7 @@ for csgn_tpu).
 import json
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,11 +119,17 @@ def test_ciphertext_surface_matches_jax(ctx):
 
 def test_key_side_helpers(small_ctx):
     tctx = T.Context(small_ctx.n, small_ctx.d)
-    sk = T.SecretKey.generate(tctx, torch.Generator().manual_seed(0), device="cpu")
-    assert len(set(sk.indices.tolist())) == tctx.d
-    one, zero = sk.encrypt(T.Plaintext(1), 1), sk.encrypt(0, 2)
+    sk = T.SecretKey.generate(tctx, T.rng.key(0), device="cpu")
+    jsk = J.SecretKey.generate(small_ctx, jax.random.key(0))
+    assert np.array_equal(sk.indices, jsk.indices) and len(set(sk.indices.tolist())) == tctx.d
+    one, zero = sk.encrypt(T.Plaintext(1), T.rng.key(1)), sk.encrypt(0, T.rng.key(2))
+    assert np.array_equal(convert.words_to_numpy(one.wt),
+                          np.asarray(jsk.encrypt(1, jax.random.key(1)).wt))
     assert (int(sk.decrypt(one)), int(sk.decrypt(zero))) == (1, 0)
     assert int(sk.decrypt_product([one, one, one])) == 1
     assert int(sk.decrypt_product([one, zero, one])) == 0
-    fresh = sk.recrypt(one * one + zero, 3)
+    fresh = sk.recrypt(one * one + zero, T.rng.key(3))
+    jfresh = jsk.recrypt(J.Ciphertext(jnp.asarray(convert.words_to_numpy((one * one + zero).wt)),
+                                      small_ctx), jax.random.key(3))
+    assert np.array_equal(convert.words_to_numpy(fresh.wt), np.asarray(jfresh.wt))
     assert fresh.chunks == 1 and int(sk.decrypt(fresh)) == 1

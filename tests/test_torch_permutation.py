@@ -14,6 +14,7 @@ import dataclasses
 import json
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -79,7 +80,7 @@ def test_plans_equal_jax(n, kind):
 
 
 def test_device_operands_cached_per_device():
-    plan = T.Permutation.random(1247, torch.Generator().manual_seed(1)).benes_plan()
+    plan = T.Permutation.random(1247, T.rng.key(1)).benes_plan()
     masks, sched = tpb.device_operands(plan, "cpu")
     assert tpb.device_operands(plan, torch.device("cpu"))[0] is masks
     np.testing.assert_array_equal(masks.numpy().view(np.uint32), plan.masks)
@@ -189,7 +190,7 @@ def test_right_shift_is_logical():
     ctx = T.Context(n, 4)
     x = torch.from_numpy(np.tile(ctx.valid_mask.view(np.int32)[:, None], (1, 3)))
     for seed in range(4):
-        p = T.Permutation.random(n, torch.Generator().manual_seed(seed))
+        p = T.Permutation.random(n, T.rng.key(seed))
         got = benes_kernels.apply_benes(x, p.benes_plan())
         assert torch.equal(got, x)  # all ones permute to all ones
     single = torch.zeros_like(x)
@@ -214,9 +215,9 @@ def test_permutation_algebra_matches_jax():
     assert tp.benes_plan() is tp.benes_plan()
     with pytest.raises(ValueError, match="length"):
         tp + T.Permutation.identity(20)
-    r = T.Permutation.random(95, torch.Generator().manual_seed(0))
+    r = T.Permutation.random(95, T.rng.key(0))
     assert sorted(r.perm.tolist()) == list(range(95))
-    assert np.array_equal(r.perm, T.Permutation.random(95, torch.Generator().manual_seed(0)).perm)
+    assert np.array_equal(r.perm, J.Permutation.random(95, jax.random.key(0)).perm)
 
 
 @pytest.mark.parametrize("ctx_name", ["ctx", "small_ctx"])

@@ -1,9 +1,10 @@
 """The port's serving executor against csgn_tpu.serve: grouping (one group
 launch per compatible group), `max_batch`, futures that flush on
 `result()`, `stats`; every route bit-equal to the JAX `BatchExecutor` given
-the same input ciphertexts; serve-encrypts by decryption and determinism
-(the JAX executor's default-engine randomness is not reproducible in the
-port, so its words are not compared); and the two faults the port repairs.
+the same input ciphertexts and the same key (``rng.key(s)`` and
+``jax.random.key(s)``): the encrypt flushes' words and the netlist route's
+NOT-constant too, on the default engine; encrypts by decryption and
+determinism; and the two faults the port repairs.
 Tolerance: 0.
 """
 
@@ -44,7 +45,7 @@ class Fleet:
 
     def executors(self, **kw):
         return (J.BatchExecutor(self.jsk, rng=jax.random.key(9), **kw),
-                T.BatchExecutor(self.tsk, seed=9, **kw))
+                T.BatchExecutor(self.tsk, rng=T.rng.key(9), **kw))
 
 
 @pytest.fixture
@@ -134,11 +135,37 @@ def test_netlist_routes_match_jax(fleet):
     assert futs[0][4].result() == [[1]]
 
 
+@pytest.mark.parametrize("default_key", [False, True], ids=["key9", "default"])
+def test_encrypt_and_netlist_flushes_equal_the_jax_executors(fleet, default_key):
+    """Two encrypt flushes (``fold_in(rng, 0)``, ``fold_in(rng, 1)``) and a
+    materialized comparator_gt, whose INV gates read the NOT-constant
+    (``fold_in(fold_in(rng, 0x6E65), 0)``): every word equals the JAX
+    executor's, under key 9 and under both executors' default key(0)."""
+    if default_key:
+        jex, tex = J.BatchExecutor(fleet.jsk), T.BatchExecutor(fleet.tsk)
+    else:
+        jex, tex = fleet.executors()
+    groups = [[1, 0, 1, 1, 0], [0, 1, 1]]
+    for bits in groups:
+        jf = [jex.submit_encrypt(b) for b in bits]
+        tf = [tex.submit_encrypt(b) for b in bits]
+        for j, t in zip(jf, tf):
+            np.testing.assert_array_equal(_u64(t.result()), _u64(j.result()))
+        assert [int(fleet.tsk.decrypt(f.result())) for f in tf] == bits
+    gt_t, gt_j = tn.comparator_gt(2), jn.comparator_gt(2)
+    cts = [fleet.ct(1, bit=x) for x in (0, 1, 1, 0)]             # 2 > 1
+    jout = jex.submit_netlist(gt_j, [[j for j, _ in cts[:2]], [j for j, _ in cts[2:]]])
+    tout = tex.submit_netlist(gt_t, [[t for _, t in cts[:2]], [t for _, t in cts[2:]]])
+    ((tbit,),), ((jbit,),) = tout.result(), jout.result()
+    np.testing.assert_array_equal(_u64(tbit), _u64(jbit))
+    assert int(fleet.tsk.decrypt(tbit)) == 1
+
+
 def test_encrypt_route_decrypts_and_reproduces(fleet):
     bits = [1, 0, 1, 1, 0, 0, 1]
     runs = []
     for _ in range(2):
-        ex = T.BatchExecutor(fleet.tsk, seed=5)
+        ex = T.BatchExecutor(fleet.tsk, rng=T.rng.key(5))
         futs = [ex.submit_encrypt(b) for b in bits]
         assert ex.pending() == 7 and not futs[0].done
         cts = [f.result() for f in futs]                  # result() flushes
@@ -153,14 +180,16 @@ def test_encrypt_route_decrypts_and_reproduces(fleet):
         assert not np.array_equal(second.to_u64(), cts[0].to_u64())
     for x, y in zip(*runs):
         np.testing.assert_array_equal(x, y)
-    other = T.BatchExecutor(fleet.tsk, seed=6).submit_encrypt(1).result()
+    other = T.BatchExecutor(fleet.tsk, rng=T.rng.key(6)).submit_encrypt(1).result()
     assert not np.array_equal(other.to_u64(), runs[0][0])
-    assert serve.flush_seed(5, serve.ENCRYPT_STREAM, 0) != serve.flush_seed(
-        5, serve.NETLIST_STREAM, 0)
+    k = T.rng.key(5)       # the netlist NOT-constants' stream is not the encrypts'
+    assert T.rng.fold_in(k, 0) != T.rng.fold_in(T.rng.fold_in(k, serve.NETLIST_STREAM), 0)
+    with pytest.raises(TypeError, match="rng.Key"):
+        T.BatchExecutor(fleet.tsk, rng=5)
 
 
 def test_max_batch_and_grouping(fleet):
-    tex = T.BatchExecutor(fleet.tsk, seed=1, max_batch=3)
+    tex = T.BatchExecutor(fleet.tsk, rng=T.rng.key(1), max_batch=3)
     a = [fleet.ct(1)[1] for _ in range(4)]
     grown = a[0] + a[1]
     f1 = [tex.submit_mul(x, y) for x, y in zip(a, a[1:])]     # third submit flushes

@@ -35,7 +35,7 @@ def test_validate_small_sweep_finds_no_failure(capsys):
     out = capsys.readouterr().out
     assert out.strip().splitlines()[-1] == "FAILS: none"
     assert "mode=unaligned" in out and "mode=aligned" in out
-    assert out.count("exact=True") == 28 and "exact=False" not in out
+    assert out.count("exact=True") == 29 and "exact=False" not in out
 
 
 def test_validate_reports_a_wrong_product(monkeypatch, capsys):
