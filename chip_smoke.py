@@ -10,7 +10,8 @@ once under `torch.profiler`, and prints each path's host wall, device busy
 time, idle share and heaviest kernels as [profile] lines.
 
 Phases, each printing lines tagged [device] / [build] / [check] / [main] /
-[rotate] / [circuit] / [entry] / [sharded] / [programs] / [bench] / [time]:
+[rotate] / [circuit] / [entry] / [sharded] / [programs] / [bench] / [order] /
+[time]:
 
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: the CUDA kernels from csgn_tpu_torch/csrc, with the seconds taken,
@@ -53,7 +54,7 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
   4c. the circuit and serving path at Context(1247, 16): a multiplication
      chain (4099 x 37, then x 111, fused with the decrypt), a 1021 x 16411
      product and a 16 x 2^19 product (b beyond L2), each with `*` and
-     `mul_and_decrypt`; a `BatchExecutor` (on ``rng.key(SEED)``, its
+     `mul_and_decrypt`, each product canonical; a `BatchExecutor` (on ``rng.key(SEED)``, its
      flushes on the default engine) fleet of 64 16-bit adders
      (materialized, one group launch) and 256 AES-128 blocks (key-side
      route; request 0 is FIPS-197 C.1), with groups of every other submit_*
@@ -98,6 +99,17 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      JSON line printed and held to value > 0, value_vs_anchor <= 1.05,
      enc_suspect false and an AES rate > 0 (the program raises on a wrong
      block); K1, K2, K3, K5, K7 and K8 must be launched during it;
+  4h. lazy chunk order at Context(1247, 16) through the public API: two
+     4096-bit K14 batches multiplied with `*` and `mul_and_decrypt` on the
+     forced j-major route (K1 and K2 on swapped operands), phase 4c's 16 x
+     2^19 product on the port's canonical route, `+`, `apply_permutation` (K8), `permute_and_decrypt` and decrypt (K3) of
+     the tagged results, a serve flush of tagged requests (mixed tags, one
+     shared tag, none) and an io round trip (the sharded save must refuse
+     the tagged payload); every canonical() held to the canonical kernel's
+     words, every decrypt to the staged parity; then `permute_chunks_mxu`
+     (the one-hot bf16 product) against K8 at n = 1247 and 4095; every
+     kernel of this path must be launched during it, the reference launches
+     of its checks left out of its counts;
   5. timings of each kernel and its plain version at the paths' shapes
      (CUDA events, warm-up, median of distinct inputs; nothing is asserted);
      the multiply's modes also against the aligned mode and today's
@@ -111,7 +123,11 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
      batched count form of the multiply's tiled mode at 2 x (16 x 2^19); and
      the write anchor K5 in turns with `Tensor.fill_`, then
      with K1 and with K2 (median per-pair ratio anchor ms / kernel ms, the JAX
-     bench's value_vs_anchor).  Every row gets its bound (the larger of its bytes
+     bench's value_vs_anchor); the swapped (j-major) route in turns with the
+     tiled mode at 16 x 2^19, as kernels and as the public `*` and
+     `mul_and_decrypt` (forced swapped against the port's route), with the tag
+     and its canonical() gather alone, and the one-hot permutation against
+     K8 at n = 1247 over 2^20 chunks.  Every row gets its bound (the larger of its bytes
      over 3.35 TB/s and its integer operations over 132 SMs x 64 INT32 lanes
      x the SM clock nvidia-smi reports as its maximum) and, where one
      PyTorch call computes the same function, that call's time (library_ms).
@@ -124,6 +140,7 @@ a CUDA device.  All data is made from fixed seeds.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import hashlib
 import hmac
@@ -142,13 +159,14 @@ import numpy as np
 import torch
 
 from csgn_tpu_torch import (BatchExecutor, Ciphertext, CiphertextBatch, Context, Permutation,
-                            RunConfig, SecretKey, bench, cli, models, parallel)
+                            RunConfig, SecretKey, bench, cli, models, parallel, set_eager_order)
 from csgn_tpu_torch import io as cio
 from csgn_tpu_torch import rng as prng
 from csgn_tpu_torch.circuit import lift
 from csgn_tpu_torch.layout import bit_positions_to_mask, words_from_numpy, words_to_numpy
 from csgn_tpu_torch.models import netlist as nl
-from csgn_tpu_torch.ops import _build, benes_kernels, core, encrypt_kernels, kernels
+from csgn_tpu_torch.ops import (_build, benes_kernels, core, dispatch, encrypt_kernels, kernels,
+                                order, permute_mxu)
 from csgn_tpu_torch.ops import permute_benes as pb
 from csgn_tpu_torch.parallel import dryrun
 from csgn_tpu_torch.pipeline import (mul_chain, mul_chain_decrypt, mul_chain_sharded,
@@ -156,6 +174,7 @@ from csgn_tpu_torch.pipeline import (mul_chain, mul_chain_decrypt, mul_chain_sha
 from csgn_tpu_torch.examples import (bristol_adder, deep_chain, encrypted_aes, encrypted_hmac,
                                      key_rotation, netlist_service, sharded_pipeline, voting)
 from csgn_tpu_torch.tools import enc_stats, scaling_bench, serve_demo, validate
+from csgn_tpu_torch.utils.metrics import op_metrics
 
 SEED = 20261016
 M32 = 0xFFFFFFFF
@@ -198,6 +217,14 @@ SHARD_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_shar
 # WIDE_N, phase 5 at each over WIDE_CHUNKS chunks (the PERF.md rows' size).
 WIDE_NS = (20000, 40000, 70000)
 LANES_N, WIDE_N, WIDE_CHUNKS = 20000, 70000, 1 << 14
+# Phase 4h's small operands (a fresh sum, then three serve operands whose
+# j-major product is 37 x 5), its working directory (under build/), the
+# one-hot permutation's checks (n, chunks: the bf16 bit matrix is n_pad x
+# chunks x 2 bytes) and phase 5's rounds of the public ops.
+ORDER_SMALL_T = (3, 37, 5, 11)
+ORDER_DIR = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke_order"
+MXU_CHECKS = ((1247, 1 << 18), (4095, 1 << 16))
+ORDER_ROUNDS = 3
 SHARD_RING_T = (4099, 37)                 # t1 * t2 odd: the multiply's unaligned mode
 
 # Bounds: HBM at the H100 SXM's published
@@ -284,6 +311,9 @@ SHARDED_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "encrypt_bits_cou
                 "mul_chunks_batched", "decrypt_parity_batched")
 BENCH_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "fill_anchor", "encrypt_bits_philox",
               "philox_tile", "encrypt_bits_threefry", "apply_benes")
+ORDER_PATH = ("mul_chunks", "mul_decrypt", "mul_chunks_tiled", "mul_decrypt_tiled",
+              "decrypt_parity", "decrypt_parity_batched", "apply_benes", "encrypt_bits_threefry",
+              "mul_chunks_unaligned_batched", "mul_decrypt_unaligned_batched")
 
 # JAX's draws, from jax.random on the CPU (JAX 0.9.0, partitionable threefry;
 # tests/test_torch_jax_random.py holds them to jax.random): phase 3 holds the
@@ -795,6 +825,7 @@ def main_path(ctx, keys, rng, dev) -> tuple[dict, Ciphertext]:
     xor1, xor2 = int(bits1.sum() % 2), int(bits2.sum() % 2)
     for name in kernels.LAUNCHES:
         kernels.LAUNCHES[name] = 0
+    op_metrics().reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
 
@@ -815,6 +846,8 @@ def main_path(ctx, keys, rng, dev) -> tuple[dict, Ciphertext]:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    routes = {k: v["calls"] for k, v in op_metrics().snapshot().items()
+              if k.startswith(("dispatch.", "mul_chunks.", "mul_decrypt."))}
 
     require(sk.indices.tolist() == MAIN_KEY_INDICES, f"secret key {sk.indices.tolist()} is not "
             f"JAX's {MAIN_KEY_INDICES}")
@@ -834,6 +867,10 @@ def main_path(ctx, keys, rng, dev) -> tuple[dict, Ciphertext]:
             "product != plain cross-product on the card")
     idle = [k for k in MAIN_PATH if launches[k] == 0]
     require(not idle, f"main path never launched: {idle}")
+    require(routes.get("dispatch.mul.cuda") == routes.get("dispatch.mul_dec.cuda") == 1
+            and routes.get("mul_chunks.aligned") == routes.get("mul_decrypt.aligned") == 1
+            and not any("_jm" in k for k in routes),
+            f"the 4096 x 4096 product left the canonical aligned route: {routes}")
     print(f"[main] Context({ctx.n},{ctx.d}) W={ctx.words32}: secret key from "
           f"split(key({SEED}), 4)[0] = JAX's; 2 x {MAIN_T}-bit encrypt on the default engine "
           f"(words = JAX's, sha-256 {sha[0]} {sha[1]}) + 1 on the counter engine, "
@@ -841,6 +878,7 @@ def main_path(ctx, keys, rng, dev) -> tuple[dict, Ciphertext]:
           f"decrypt(c1)={d1} decrypt(c2)={d2} mul_and_decrypt={int(p)} "
           f"decrypt(prod)={dprod} decrypt(c1+c2)={dsum} decrypt(c1+c3)={dsum3}; "
           f"{seconds:.3f} s host wall")
+    print(f"[main] routes {json.dumps(routes)}")
     print(f"[main] launches {json.dumps(launches)}; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
 
@@ -1016,6 +1054,7 @@ def circuit_path(ctx, indices, setup: dict, rng, dev) -> tuple[dict, dict]:
         prod2, p = _timed(steps, f"{tag} mul_and_decrypt", lambda: sk.mul_and_decrypt(c1, c2))
         require(torch.equal(prod.wt, prod2.wt), f"{tag}: * != mul_and_decrypt's product")
         require(int(p) == oracle(prod.wt) == want, f"{tag}: parity {int(p)} != {want}")
+        require(prod.is_canonical and prod2.is_canonical, f"{tag}: a product is not canonical")
         print(f"[circuit] {c1.chunks} x {c2.chunks} -> {prod.chunks} chunks "
               f"({prod.nbytes / 1e9:.2f} GB; b {c2.nbytes / 1e6:.0f} MB): `*` and "
               f"mul_and_decrypt bit-equal, parity {int(p)} = the chunk_matches oracle")
@@ -1530,6 +1569,217 @@ def bench_path(card: str) -> tuple[dict, dict]:
     return launches, line
 
 
+# ---------------------------------------------------------------------------
+# Phase 4h: lazy chunk order, through the public API
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def forced_jmajor():
+    """Every `*`, `mul_and_decrypt` and batched form inside takes the
+    j-major route (the canonical kernel on the swapped operands), whatever
+    the card's rule picks, as tests/test_torch_order.py forces it."""
+    saved = {name: getattr(dispatch, name) for name in (
+        "mul_chunks_auto", "mul_decrypt_auto", "mul_chunks_batched", "mul_decrypt_batched_auto")}
+
+    def mul(a, b):
+        return dispatch.mul_chunks_jmajor(a, b), True, 0, 0
+
+    def mul_dec(a, b, m):
+        out, parity = kernels.mul_decrypt(b, a, m)
+        return out, True, 0, 0, parity
+
+    for name, fn in (("mul_chunks_auto", mul), ("mul_decrypt_auto", mul_dec),
+                     ("mul_chunks_batched", mul), ("mul_decrypt_batched_auto", mul_dec)):
+        setattr(dispatch, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(dispatch, name, fn)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The launches inside (a check's reference calls) are left out of the
+    path's counts."""
+    saved = dict(kernels.LAUNCHES)
+    try:
+        yield
+    finally:
+        kernels.LAUNCHES.update(saved)
+
+
+def order_path(ctx, indices, rng, pkeys, gen, dev) -> tuple[dict, dict]:
+    """Tagged (lazy-order) ciphertexts through the public API at Context(1247,
+    16): two 4096-bit K14 batches multiplied on the forced j-major route
+    (K1 and K2 on swapped operands), phase 4c's 16 x 2^19 product on the
+    port's canonical route, `+`, `apply_permutation` (K8),
+    `permute_and_decrypt` and decrypt (K3) of the tagged results, a serve
+    flush of tagged requests (mixed, shared and no tags) and an io round
+    trip; every canonical() against the canonical kernel's words, every
+    decrypt against the staged parity.  Then `permute_chunks_mxu` against K8
+    at n = 1247 and 4095.  The checks' reference launches are not counted
+    (`uncounted`).  Returns (launches, host wall per step)."""
+    keys = prng.split(prng.key(SEED + 800), 8)
+    a_bits, b_bits = odd_bits(rng, MAIN_T), odd_bits(rng, MAIN_T)
+    s_bits = [odd_bits(rng, t) for t in STREAM_T]
+    small_bits = [odd_bits(rng, t) for t in ORDER_SMALL_T]
+    perm = Permutation.random(ctx, next(pkeys))
+    perm.benes_plan()                                  # host routing is set-up
+    mxu = []
+    for n, chunks in MXU_CHECKS:
+        mctx = Context(n, 16)
+        q = Permutation.random(mctx, next(pkeys))
+        q.benes_plan()
+        mxu.append((mctx, q, chunks))
+    shutil.rmtree(ORDER_DIR, ignore_errors=True)
+    ORDER_DIR.mkdir(parents=True)
+    for name in kernels.LAUNCHES:
+        kernels.LAUNCHES[name] = 0
+    steps: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    sk = SecretKey(ctx, indices, device=dev)
+    m = sk.mask_words
+    # 1. 4096-bit batches on the default engine, multiplied on the forced
+    #    j-major route: the product's words are K1's on (b, a).
+    a = Ciphertext(sk.encrypt_batch(a_bits, keys[0]), ctx)
+    b = Ciphertext(sk.encrypt_batch(b_bits, keys[1]), ctx)
+    with forced_jmajor():
+        jm = _timed(steps, "forced j-major *", lambda: a * b)
+        jm2, p_jm = _timed(steps, "forced j-major mul_and_decrypt",
+                           lambda: sk.mul_and_decrypt(a, b))
+    with uncounted():
+        canon = kernels.mul_chunks(a.wt, b.wt)
+    require(not jm.is_canonical and jm.pad == 0 and jm.chunks == MAIN_T * MAIN_T,
+            "forced j-major product is not tagged")
+    require(torch.equal(jm.wt, jm2.wt) and torch.equal(jm.logical, jm2.logical),
+            "forced j-major: * != mul_and_decrypt's product")
+    lazy_canon = _timed(steps, f"canonical() {MAIN_T}x{MAIN_T}", lambda: jm.canonical().wt)
+    require(torch.equal(lazy_canon, canon), "j-major product's canonical() != K1's words")
+    d_jm = int(sk.decrypt(jm))
+    require(int(p_jm) == d_jm == 1, f"j-major parities {int(p_jm)}, {d_jm} != 1")
+    del jm2, canon, lazy_canon
+
+    # 2. Phase 4c's 16 x 2^19 product (b streams) on the port's canonical
+    #    route, `*` and fused; then tagged as a JAX TPU product crosses
+    #    (j-major, from the swapped operands).
+    c1, c2 = (Ciphertext(sk.encrypt_batch(bits, keys[2 + i]), ctx) for i, bits in enumerate(s_bits))
+    big = _timed(steps, f"{STREAM_T[0]}x{STREAM_T[1]} *", lambda: c1 * c2)
+    big2, p_big = _timed(steps, f"{STREAM_T[0]}x{STREAM_T[1]} mul_and_decrypt",
+                         lambda: sk.mul_and_decrypt(c1, c2))
+    with uncounted():
+        canon_big, p_canon = kernels.mul_decrypt(c1.wt, c2.wt, m)    # the canonical kernel
+    require(big.is_canonical and big2.is_canonical, "16 x 2^19 product is not canonical")
+    require(torch.equal(big.wt, big2.wt) and torch.equal(big.wt, canon_big),
+            "16 x 2^19: * or mul_and_decrypt != the canonical kernel's words")
+    require(int(p_big) == int(p_canon) == 1, f"16 x 2^19 parity {int(p_big)}, {int(p_canon)}")
+    with forced_jmajor():
+        big = _timed(steps, f"{STREAM_T[0]}x{STREAM_T[1]} * (forced j-major)", lambda: c1 * c2)
+    require(not big.is_canonical and torch.equal(big.canonical().wt, canon_big),
+            "16 x 2^19 j-major: canonical() != the canonical kernel's words")
+    del big2
+
+    # 3. `+`, apply_permutation (K8), permute_and_decrypt and decrypt (K3)
+    #    of the tagged results.
+    tiny = Ciphertext(sk.encrypt_batch(small_bits[0], keys[4]), ctx)
+    s = jm + tiny
+    require(not s.is_canonical and torch.equal(
+        s.canonical().wt, torch.cat([jm.canonical().wt, tiny.wt], dim=1)), "tagged + != concat")
+    require(int(sk.decrypt(s)) == 0, "decrypt(tagged + fresh) != 1 ^ 1")
+    del s, jm
+    q = _timed(steps, "apply_permutation (tagged)", lambda: big.apply_permutation(perm))
+    require(q.logical is big.logical, "apply_permutation dropped the tag")
+    with uncounted():
+        want_q = dispatch.permute(canon_big, perm.benes_plan())
+    require(torch.equal(q.canonical().wt, want_q),
+            "permuted tagged product's canonical() != K8 on the canonical words")
+    psk = sk.apply_permutation(perm)
+    require(int(psk.decrypt(q)) == 1, "permuted tagged product does not decrypt under the "
+            "rotated key")
+    q2, p_q = sk.permute_and_decrypt(big, perm)
+    require(q2.logical is big.logical and torch.equal(q2.wt, q.wt) and int(p_q) == 1,
+            "permute_and_decrypt of a tagged product")
+    del q, q2, canon_big, want_q
+
+    # 4. A serve flush of tagged requests: mixed tags, one shared tag (a
+    #    batch's elements) and none.
+    x = [Ciphertext(sk.encrypt_batch(bits, keys[5 + i]), ctx)
+         for i, bits in enumerate(small_bits[1:])]
+    with forced_jmajor():
+        lazy = x[0] * x[1]
+        shared = CiphertextBatch.stack([x[0], x[0]]) * CiphertextBatch.stack([x[1], x[1]])
+    ex = BatchExecutor(sk, rng=prng.key(SEED))
+    reqs = [(lazy, x[2]), (lazy.canonical(), x[2]), (shared[0], x[1]), (shared[1], x[1]),
+            (x[2], x[0]), (x[2], x[0])]
+    futs = [(ex.submit_mul(u, v), ex.submit_mul_decrypt(u, v), ex.submit_decrypt(u), u, v)
+            for u, v in reqs]
+    g0 = ex.stats["group_dispatches"]
+    _timed(steps, "serve flush (tagged)", ex.flush)
+    groups = ex.stats["group_dispatches"] - g0
+    for fm, fmd, fd, u, v in futs:
+        prod, bit = fmd.result()
+        with uncounted():
+            want = kernels.mul_chunks(u.canonical().wt, v.canonical().wt)
+            staged = int(kernels.decrypt_parity(want, m)), int(sk.decrypt(u))
+        require(torch.equal(fm.result().canonical().wt, want)
+                and torch.equal(prod.canonical().wt, want), "serve product != canonical kernel")
+        require((bit, fd.result()) == staged, "serve decrypts != the staged parity")
+
+    # 5. Serialization: the tagged product's bytes under lazy and eager
+    #    order, an io round trip of it, and the sharded save refusing it.
+    prev = set_eager_order(True)
+    try:
+        with forced_jmajor():
+            eager = x[0] * x[1]
+    finally:
+        set_eager_order(prev)
+    require(eager.is_canonical and not lazy.is_canonical
+            and np.array_equal(eager.to_u64(), lazy.to_u64()), "to_u64() lazy != eager")
+    path = ORDER_DIR / "lazy.npz"
+    _timed(steps, "save_ciphertext (tagged)", lambda: cio.save_ciphertext(path, lazy))
+    back = cio.load_ciphertext(path)
+    require(back.is_canonical and np.array_equal(back.to_u64(), lazy.to_u64())
+            and torch.equal(back.wt, lazy.canonical().wt), "io round trip of a tagged product")
+    try:
+        cio.save_state_sharded(ORDER_DIR / "sharded", {"ct": lazy})
+        require(False, "sharded save took a lazy payload")
+    except ValueError as e:
+        require("canonical payload" in str(e), f"sharded save refused with {e}")
+
+    # 6. The one-hot permutation against K8.
+    mxu_out = []
+    for mctx, q, chunks in mxu:
+        words = rand_words(mctx, chunks, gen, dev)
+        onehot = permute_mxu.onehot_matrix(q.perm, mctx.n, dev)
+        got = _timed(steps, f"permute_chunks_mxu n={mctx.n}",
+                     lambda: permute_mxu.permute_chunks_mxu(words, onehot, mctx.n))
+        with uncounted():
+            want = benes_kernels.apply_benes(words, q.benes_plan())
+        require(torch.equal(got, want), f"permute_chunks_mxu != K8 at n = {mctx.n}")
+        mxu_out.append(f"n={mctx.n} over {chunks} chunks")
+        del words, got, want
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    shutil.rmtree(ORDER_DIR, ignore_errors=True)
+    idle = [k for k in ORDER_PATH if launches[k] == 0]
+    require(not idle, f"order path never launched: {idle}")
+    print(f"[order] Context({ctx.n},{ctx.d}): forced j-major {MAIN_T} x {MAIN_T} `*` and "
+          f"mul_and_decrypt (K1, K2 on swapped operands), canonical() = K1's words, parity "
+          f"{int(p_jm)}; {STREAM_T[0]} x {STREAM_T[1]} canonical = the canonical kernel's "
+          f"words, parity {int(p_big)}, its forced j-major canonical() = them too; + / apply_permutation / permute_and_decrypt / decrypt of tagged "
+          f"results; serve flush of {len(reqs)} x 3 tagged requests in {groups} group launches; "
+          f"to_u64() lazy = eager; io round trip (the sharded save refuses it); permute_chunks_mxu = K8 at "
+          f"{', '.join(mxu_out)}")
+    print(f"[order] host wall per step (s): {json.dumps(steps)}; whole phase {seconds:.3f} s")
+    print(f"[order] launches {json.dumps({k: launches[k] for k in ORDER_PATH})}; peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    return launches, steps
+
+
 def profile_path(label: str, run, warm: int) -> None:
     """A path `warm` times warm (host wall), then once under torch.profiler:
     device busy time (the union of kernel intervals), idle share of the host
@@ -1933,6 +2183,15 @@ def lane_timings(gen, pkeys, dev, card: str, wide_perms, bound) -> dict:
     return out
 
 
+def fresh_pairs(sk, gen, dev, t1: int, t2: int, seed: int) -> list:
+    """REPS distinct operand pairs of fresh encrypts ([W, t1], [W, t2]) of
+    random bits under counter seeds from `seed` on."""
+    def one(t, s):
+        bits = torch.randint(0, 2, (t,), dtype=torch.int32, device=dev, generator=gen)
+        return sk.encrypt_batch(bits, s)
+    return [(one(t1, seed + 2 * k), one(t2, seed + 2 * k + 1)) for k in range(REPS)]
+
+
 def mode_timings(ctx, sk, gen, dev, card: str, bound) -> dict:
     """The multiply's unaligned and b-streamed modes: each against its plain
     version, against the aligned mode at (nearly) equal product bytes, the
@@ -1943,12 +2202,7 @@ def mode_timings(ctx, sk, gen, dev, card: str, bound) -> dict:
     m = sk.mask_words
     w = ctx.words32
     out = {}
-
-    def fresh(t1, t2, seed):
-        def one(t, s):
-            bits = torch.randint(0, 2, (t,), dtype=torch.int32, device=dev, generator=gen)
-            return sk.encrypt_batch(bits, s)
-        return [(one(t1, seed + 2 * k), one(t2, seed + 2 * k + 1)) for k in range(REPS)]
+    fresh = functools.partial(fresh_pairs, sk, gen, dev)
 
     def forced(mode, count):
         mask = m if count else None
@@ -2043,6 +2297,71 @@ def mode_timings(ctx, sk, gen, dev, card: str, bound) -> dict:
               f"{ms:.4f} ms, aligned walk {ams:.4f} ms; {card}")
         del ins
     out["threshold_sweep"] = sweep
+    return out
+
+
+def order_timings(ctx, sk, gen, dev, card: str, bound, pkeys) -> dict:
+    """Lazy order's costs, each in turns: the swapped route (K1 / K2 on
+    (b, a), a j-major product) against the tiled mode at 16 x 2^19, as
+    kernels and as the public `*` and `mul_and_decrypt` (forced onto the
+    swapped route against the port's canonical route), with the tag's
+    construction and the canonical() gather alone; and the one-hot
+    permutation against K8 at n = 1247 over 2^20 chunks."""
+    m = sk.mask_words
+    w = ctx.words32
+    out = {}
+    fresh = functools.partial(fresh_pairs, sk, gen, dev)
+
+    def swapped(fn):   # the public call forced onto the swapped route
+        def run(x, y):
+            with forced_jmajor():
+                return fn(x, y)
+        return run
+
+    def rounds(f, g, ins):
+        """Medians of ORDER_ROUNDS rounds of `time_pair` (the public calls'
+        host work makes one round noisier than a kernel's)."""
+        pairs = [time_pair(f, g, ins) for _ in range(ORDER_ROUNDS)]
+        return statistics.median(a for a, _ in pairs), statistics.median(b for _, b in pairs)
+
+    t1, t2 = STREAM_T
+    ins = fresh(t1, t2, SEED + 900)
+    swapped_mode = kernels.mul_mode(w, t2, t1, True)
+    sw, tiled = time_pair(lambda x, y: kernels.mul_chunks(y, x), kernels.mul_chunks, ins)
+    swd, tiledd = time_pair(lambda x, y: kernels.mul_decrypt(y, x, m),
+                            lambda x, y: kernels.mul_decrypt(x, y, m), ins)
+    cts = [(Ciphertext(x, ctx), Ciphertext(y, ctx)) for x, y in ins]
+    api_sw, api = rounds(swapped(operator.mul), operator.mul, cts)
+    apid_sw, apid = rounds(swapped(sk.mul_and_decrypt), sk.mul_and_decrypt, cts)
+    tag_ms = run_ms(lambda: order.cross_logical(None, None, t1, t2, jmajor=True, device=dev),
+                    [()] * REPS)
+    canon_ms = run_ms(lambda c: c.canonical(), [(swapped(operator.mul)(x, y),)
+                                                for x, y in cts[:2]])
+    bnd = bound(mul_bytes(w, t1, t2))
+    out["swap"] = {"shape": f"{t1}x{t2}", "swapped_mode": swapped_mode, "swapped_ms": sw,
+                   "tiled_ms": tiled, "swapped_count_ms": swd, "tiled_count_ms": tiledd,
+                   "api_mul_swapped_ms": api_sw, "api_mul_ms": api,
+                   "api_mul_and_decrypt_swapped_ms": apid_sw, "api_mul_and_decrypt_ms": apid,
+                   "tag_ms": tag_ms, "canonical_ms": canon_ms, **bnd}
+    print(f"[time] swap {t1}x{t2}: swapped ({swapped_mode}) {sw:.4f} ms against tiled "
+          f"{tiled:.4f} ms; count forms {swd:.4f} against {tiledd:.4f} ms; `*` swapped "
+          f"{api_sw:.4f} against the port's route {api:.4f} ms; mul_and_decrypt swapped "
+          f"{apid_sw:.4f} against {apid:.4f} ms (medians of {ORDER_ROUNDS} rounds); the tag "
+          f"alone {tag_ms:.4f} ms, canonical() {canon_ms:.4f} ms; bound "
+          f"{bnd['bound_ms']:.4f} ms; {card}")
+    del ins, cts
+
+    perm = Permutation.random(ctx, next(pkeys))
+    plan = perm.benes_plan()
+    onehot = permute_mxu.onehot_matrix(perm.perm, ctx.n, dev)
+    ins = [(rand_words(ctx, PERM_CHUNKS, gen, dev),) for _ in range(REPS)]
+    k8, mx = time_pair(lambda x: benes_kernels.apply_benes(x, plan),
+                       lambda x: permute_mxu.permute_chunks_mxu(x, onehot, ctx.n), ins)
+    out["mxu_1247"] = {"chunks": PERM_CHUNKS, "k8_ms": k8, "mxu_ms": mx,
+                       "mxu_matmul_flop": 2 * onehot.shape[0] ** 2 * PERM_CHUNKS}
+    print(f"[time] permute_chunks_mxu n={ctx.n} over {PERM_CHUNKS} chunks: {mx:.4f} ms against "
+          f"K8 {k8:.4f} ms; {card}")
+    del ins
     return out
 
 
@@ -2172,19 +2491,28 @@ def main() -> int:
     bench_launches, _ = bench_path(smi)
     torch.cuda.empty_cache()
 
+    # Phase 4h: lazy chunk order.
+    torch.cuda.reset_peak_memory_stats(dev)
+    order_launches, _ = order_path(ctx, indices, rng, pkeys, gen, dev)
+    torch.cuda.empty_cache()
+
     # Phase 5: timings.
     times = timings(ctx, sk, gen, dev, smi, p, stacked, bound)
     times.update(mode_timings(ctx, sk, gen, dev, smi, bound))
     times.update(lane_timings(gen, pkeys, dev, smi, wide_perms, bound))
+    times.update(order_timings(ctx, sk, gen, dev, smi, bound, pkeys))
     torch.cuda.synchronize()
+    # The swapped route beside the mode it replaces at 16 x 2^19 (K6a / K6b's shape).
+    times["K6a"]["swapped_route_ms"] = times["swap"]["swapped_ms"]
+    times["K6b"]["swapped_route_ms"] = times["swap"]["swapped_count_ms"]
     extra = ("unaligned_t2_1", "unaligned_t2_3", "threshold_sweep", "K6b_batched",
-             "lanes_4095", "lanes_40000")
+             "lanes_4095", "lanes_40000", "swap", "mxu_1247")
     print(f"[time] mode timings {json.dumps({k: times[k] for k in extra})}")
 
     rows = []
     paths = (("main", main_launches), ("rotation", rot_launches), ("circuit", circ_launches),
              ("entry", entry_launches), ("sharded", shard_launches),
-             ("programs", prog_launches), ("bench", bench_launches))
+             ("programs", prog_launches), ("bench", bench_launches), ("order", order_launches))
     for tid, name, src, rep in KERNELS:
         by_path = {path: launches.get(name, 0) + launches.get(name + "_batched", 0)
                    for path, launches in paths}

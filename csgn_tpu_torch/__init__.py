@@ -20,18 +20,19 @@ CLI: ``--device cpu``), and raise where there is no card.  Checkpoints
 from csgn_tpu_torch import models, rng
 from csgn_tpu_torch.batch import CiphertextBatch
 from csgn_tpu_torch.ciphertext import Ciphertext, set_eager_order
-from csgn_tpu_torch.circuit import CtExpr
+from csgn_tpu_torch.circuit import CtExpr, lift
 from csgn_tpu_torch.config import RunConfig
 from csgn_tpu_torch.context import Context
 from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.plaintext import Plaintext
 from csgn_tpu_torch.secret_key import SecretKey
-from csgn_tpu_torch.serve import BatchExecutor
+from csgn_tpu_torch.serve import BatchExecutor, ServeFuture
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Context", "Plaintext", "SecretKey", "Ciphertext", "CiphertextBatch", "set_eager_order",
     "Permutation",
-    "CtExpr", "RunConfig", "BatchExecutor", "models", "rng", "__version__",
+    "CtExpr", "lift", "RunConfig", "BatchExecutor", "ServeFuture", "models", "rng",
+    "__version__",
 ]

@@ -21,8 +21,9 @@ Fast paths:
   * fresh-batch interop: `SecretKey.encrypt_batch` emits ``[W, B]`` (batch on
     the chunk axis); `from_fresh`/`to_fresh` are a transpose away.
 
-Chunk order: the port's products are always canonical, so a batch carries no
-order tag and `canonical()` returns ``self``.  Unlike the JAX package, an
+Chunk order: batched `*` writes the same physical order for every element,
+so ONE shared ``logical`` tag (`ops.order`) with its ``pad`` covers the
+whole batch, as in the JAX package.  Unlike the JAX package, an
 operator with a non-batch operand returns ``NotImplemented`` (so Python
 raises TypeError or tries the other operand's method), and a batch of
 B = 0 is rejected.
@@ -36,9 +37,9 @@ import numpy as np
 import torch
 
 from csgn_tpu_torch import layout
-from csgn_tpu_torch.ciphertext import Ciphertext
+from csgn_tpu_torch.ciphertext import Ciphertext, check_tag, product_tag
 from csgn_tpu_torch.context import Context
-from csgn_tpu_torch.ops import core, dispatch
+from csgn_tpu_torch.ops import core, dispatch, order
 from csgn_tpu_torch.ops import permute_benes as pb
 from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.utils.metrics import op_metrics
@@ -50,10 +51,14 @@ __all__ = ["CiphertextBatch"]
 class CiphertextBatch:
     """B same-shape ciphertexts: ``wt int32[B, W, chunks]`` + their context.
 
-    ``eq=False``: compare ``wt`` or ``to_u64()`` explicitly."""
+    ``logical``/``pad`` are the shared lazy-order tag (see `Ciphertext`):
+    identical op sequences give identical physical orders, so one tag serves
+    all B elements.  ``eq=False``: compare ``to_u64()`` explicitly."""
 
     wt: torch.Tensor
     ctx: Context
+    logical: torch.Tensor | None = None
+    pad: int = 0
 
     def __post_init__(self):
         w = self.wt
@@ -66,6 +71,7 @@ class CiphertextBatch:
             )
         if w.shape[0] == 0:
             raise ValueError("empty batch: a CiphertextBatch needs B >= 1")
+        check_tag(w, self.logical, self.pad, "batch")
         object.__setattr__(self, "wt", w.contiguous())  # frozen: set once, here
 
     # -- properties -----------------------------------------------------------
@@ -76,20 +82,17 @@ class CiphertextBatch:
 
     @property
     def chunks(self) -> int:
-        """Chunk count per element."""
-        return int(self.wt.shape[-1])
+        """Logical chunk count per element (pads excluded)."""
+        return int(self.wt.shape[-1]) - self.pad
 
     @property
     def physical_chunks(self) -> int:
-        """Device-resident chunks per element: `chunks`, since the port
-        never pads a product (the JAX package's may carry pad chunks)."""
+        """Device-resident chunks per element, pad chunks included."""
         return int(self.wt.shape[-1])
 
     @property
     def is_canonical(self) -> bool:
-        """True: every element is in the reference's chunk order (the port's
-        batched products carry no order tag)."""
-        return True
+        return self.logical is None
 
     @property
     def device(self) -> torch.device:
@@ -109,23 +112,24 @@ class CiphertextBatch:
 
     @classmethod
     def stack(cls, cts: list[Ciphertext]) -> "CiphertextBatch":
-        """Stack same-shape ciphertexts into a batch."""
+        """Stack same-shape ciphertexts (canonicalized) into a batch."""
         if not cts:
             raise ValueError("empty batch")
         ctx = cts[0].ctx
-        if any(c.ctx != ctx or c.chunks != cts[0].chunks for c in cts):
+        cs = [ct.canonical() for ct in cts]
+        if any(c.ctx != ctx or c.chunks != cs[0].chunks for c in cs):
             raise ValueError("stack requires equal contexts and chunk counts")
-        return cls(torch.stack([c.wt for c in cts]), ctx)
+        return cls(torch.stack([c.wt for c in cs]), ctx)
 
     def __getitem__(self, i: int) -> Ciphertext:
-        """Element i as a single Ciphertext."""
-        return Ciphertext(self.wt[i], self.ctx)
+        """Element i as a single Ciphertext (shares the tag)."""
+        return Ciphertext(self.wt[i], self.ctx, self.logical, self.pad)
 
     def to_fresh(self) -> torch.Tensor:
         """Back to the ``[W, B]`` fresh layout (requires chunks == 1)."""
         if self.chunks != 1:
             raise ValueError(f"not a fresh batch: {self.chunks} chunks")
-        return self.wt.reshape(self.batch, -1).t().contiguous()
+        return self.canonical().wt.reshape(self.batch, -1).t().contiguous()
 
     # -- homomorphic operators -------------------------------------------------
 
@@ -144,7 +148,10 @@ class CiphertextBatch:
             "batch.add", chunks_in=self.batch * (t1 + t2), chunks_out=self.batch * (t1 + t2),
             bytes_moved=2 * self.batch * self.ctx.chunk_count_bytes(t1 + t2),
         ):
-            return CiphertextBatch(core.add_chunks(self.wt, other.wt), self.ctx)
+            tag = order.concat_logical(self.logical, other.logical, t1, t2, device=self.device)
+            return CiphertextBatch(
+                core.add_chunks(self.wt, other.wt), self.ctx, tag, self.pad + other.pad
+            )
 
     def __mul__(self, other: "CiphertextBatch") -> "CiphertextBatch":
         if not isinstance(other, CiphertextBatch):
@@ -155,10 +162,12 @@ class CiphertextBatch:
             "batch.mul", chunks_in=self.batch * (t1 + t2), chunks_out=self.batch * t1 * t2,
             bytes_moved=self.batch * self.ctx.chunk_count_bytes(t1 + t2 + t1 * t2),
         ):
-            if t1 == 1 and t2 == 1:
+            if t1 == 1 and t2 == 1 and self.pad == 0 and other.pad == 0:
                 # Batched defaultN fast path: one elementwise AND.
                 return CiphertextBatch(self.wt & other.wt, self.ctx)
-            return CiphertextBatch(dispatch.mul_chunks_batched(self.wt, other.wt), self.ctx)
+            out, jmajor, zp_a, zp_b = dispatch.mul_chunks_batched(self.wt, other.wt)
+            return CiphertextBatch(out, self.ctx,
+                                   *product_tag(self, other, out, jmajor, zp_a, zp_b))
 
     def apply_permutation(self, p: Permutation) -> "CiphertextBatch":
         """Apply the same π to every element (per-chunk bit permutation)."""
@@ -166,9 +175,11 @@ class CiphertextBatch:
             raise ValueError(f"permutation length {p.n} != context n {self.ctx.n}")
         with op_metrics().record(
             "batch.permute", chunks_in=self.batch * self.chunks,
-            chunks_out=self.batch * self.chunks, bytes_moved=2 * self.nbytes,
+            chunks_out=self.batch * self.chunks,
+            bytes_moved=2 * self.batch * self.ctx.chunk_count_bytes(self.physical_chunks),
         ):
-            return CiphertextBatch(dispatch.permute_batched(self.wt, p.benes_plan()), self.ctx)
+            return CiphertextBatch(dispatch.permute_batched(self.wt, p.benes_plan()), self.ctx,
+                                   self.logical, self.pad)
 
     def apply_permutations(self, perms: list[Permutation]) -> "CiphertextBatch":
         """Apply permutation i to batch element i (one per element).
@@ -177,7 +188,8 @@ class CiphertextBatch:
         distinct transforms in one kernel launch.  All plans share the delta
         schedule (same n), so they stack into one mask tensor
         (`ops.permute_benes.stack_plans`) and the kernel picks element i's
-        masks by its batch index.
+        masks by its batch index; chunk positions are untouched, so the
+        shared order tag carries over.
         """
         if len(perms) != self.batch:
             raise ValueError(f"need {self.batch} permutations, got {len(perms)}")
@@ -186,23 +198,32 @@ class CiphertextBatch:
         stacked = pb.stack_plans([p.benes_plan() for p in perms])
         with op_metrics().record(
             "batch.permute_multi", chunks_in=self.batch * self.chunks,
-            chunks_out=self.batch * self.chunks, bytes_moved=2 * self.nbytes,
+            chunks_out=self.batch * self.chunks,
+            bytes_moved=2 * self.batch * self.ctx.chunk_count_bytes(self.physical_chunks),
         ):
-            return CiphertextBatch(dispatch.permute_batched_multi(self.wt, stacked), self.ctx)
+            return CiphertextBatch(dispatch.permute_batched_multi(self.wt, stacked), self.ctx,
+                                   self.logical, self.pad)
+
+    # -- chunk order ------------------------------------------------------------
 
     def canonical(self) -> "CiphertextBatch":
-        """Reference chunk order — what every batch of the port has."""
-        return self
+        """Reference chunk order for every element, pad chunks dropped (one
+        gather on the payload's device; ``self`` if already canonical)."""
+        if self.logical is None:
+            return self
+        return CiphertextBatch(order.canonicalize(self.wt, self.logical, self.chunks), self.ctx)
 
     # -- interop ---------------------------------------------------------------
 
     def to_u64(self) -> np.ndarray:
         """Reference-layout uint64 words per element: ``[B, chunks*words64]``."""
-        cm = layout.words_to_numpy(self.wt).transpose(0, 2, 1)
+        cm = layout.words_to_numpy(self.canonical().wt).transpose(0, 2, 1)
         return layout.u32_to_u64(cm.reshape(-1, cm.shape[-1])).reshape(self.batch, -1)
 
     def __repr__(self) -> str:
+        ordr = "canonical" if self.logical is None else "lazy"
+        padinfo = f"+{self.pad}pad" if self.pad else ""
         return (
-            f"CiphertextBatch(B={self.batch}, chunks={self.chunks}, "
-            f"W={self.wt.shape[-2]}, device={self.device}, ctx={self.ctx})"
+            f"CiphertextBatch(B={self.batch}, chunks={self.chunks}{padinfo}, "
+            f"W={self.wt.shape[-2]}, order={ordr}, device={self.device}, ctx={self.ctx})"
         )

@@ -10,9 +10,21 @@ Counterpart of `csgn_tpu.ciphertext.Ciphertext` (reference
     bit-identical to the JAX package's ``uint32[W, chunks]`` (see
     `csgn_tpu_torch.layout`).  Chunk-major views exist only at the
     serialization boundary (`to_u64`/`from_u64`).
-  * **Always canonical** — the CUDA multiply writes the reference's i-major
-    ``i*t2+j`` order (src/Ciphertext.cpp:159) for any t2, so products carry no
-    order tag and no pad chunks; `canonical()` returns ``self``.
+  * **Lazy chunk order** — decryption is a parity over the multiset of
+    chunks (src/SecretKey.cpp:126-140), so only the reference's byte layout
+    pins a product's ``i*t2+j`` order (src/Ciphertext.cpp:159).  A product
+    in another physical order (the JAX package's j-major and padded TPU
+    routes, or `ops.dispatch.mul_chunks_jmajor` on request) carries a
+    ``logical`` index tag (`ops.order`), resolved by one gather at the
+    interop boundaries (`canonical`, `to_u64`); pad chunks (``pad``,
+    all-zero chunks marked PAD in the tag) are decrypt-neutral.  A JAX
+    ciphertext's tag and pads cross with it (`convert`), and a tagged
+    operand's tag carries through ``*``, ``+`` and `apply_permutation`.
+    The port's own ``*`` (`ops.dispatch.mul_chunks_auto`) writes the
+    canonical order on the card and on the CPU, so canonical operands give
+    canonical products; `set_eager_order(True)` makes every product
+    canonical.  ``chunks`` is
+    always the reference-visible (logical) count.
   * **No materialized bitlen** — derived from the context when needed.
   * **Contiguous words** — a view (``c.wt[:, :2]``) is copied on
     construction, since the kernels read dense rows.
@@ -31,25 +43,23 @@ import torch
 
 from csgn_tpu_torch import layout
 from csgn_tpu_torch.context import Context
-from csgn_tpu_torch.ops import core, dispatch
+from csgn_tpu_torch.ops import core, dispatch, order
 from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.utils.metrics import op_metrics
 
 __all__ = ["Ciphertext", "set_eager_order"]
 
-# The JAX package's order flag (csgn_tpu/ciphertext.py:60-75), kept so that
-# code written against its API runs unchanged; no result of the port reads it.
+# When True, every operator writes the canonical chunk order (strict per-op
+# layout parity with the reference), as in the JAX package.
 _EAGER_ORDER = False
 
 
 def set_eager_order(eager: bool) -> bool:
-    """Set the eager-order flag and return its previous setting, as the JAX
-    package's `set_eager_order` does.
+    """Toggle physically-canonical chunk order for all new results.
 
-    There, eager order makes every operator write the reference's chunk
-    order at once instead of tagging a lazy (j-major or padded) payload.
-    Every product of the port is already written in that canonical order,
-    so the flag is kept for API parity and changes no result.
+    Returns the previous setting.  Lazy order (the default) is bit-exact at
+    every interop boundary; eager mode also makes the raw payload `wt` match
+    the reference order after every single op.
     """
     global _EAGER_ORDER
     prev = _EAGER_ORDER
@@ -57,15 +67,39 @@ def set_eager_order(eager: bool) -> bool:
     return prev
 
 
+def check_tag(wt: torch.Tensor, logical, pad: int, what: str) -> None:
+    """The JAX package's tag checks (a pad needs a tag; the tag is one int32
+    entry per physical chunk), plus the tag's device: the payload's."""
+    if pad and logical is None:
+        raise ValueError(f"padded {what} requires an order tag")
+    if pad < 0 or pad > wt.shape[-1]:
+        raise ValueError(f"{what} pad {pad} outside [0, {wt.shape[-1]}]")
+    if logical is None:
+        return
+    if not isinstance(logical, torch.Tensor) or logical.dtype != torch.int32:
+        raise TypeError("order tag must be an int32 torch.Tensor")
+    if tuple(logical.shape) != (wt.shape[-1],):
+        raise ValueError(
+            f"order tag shape {tuple(logical.shape)} != physical chunks {wt.shape[-1]}"
+        )
+    if logical.device != wt.device:
+        raise ValueError(f"order tag on {logical.device}, payload on {wt.device}")
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Ciphertext:
     """Packed ciphertext words ``int32[W, chunks]`` plus its context.
 
-    ``eq=False``: tensor fields have no boolean ``==``; compare ``wt`` or
-    ``to_u64()`` explicitly."""
+    ``logical`` (optional int32[physical chunks], on the payload's device)
+    maps physical column p to its reference-order index; None means physical
+    == canonical order.  ``pad`` counts the all-zero pad chunks (PAD in the
+    tag).  ``eq=False``: tensor fields have no boolean ``==``; compare
+    ``to_u64()`` or the canonical ``wt`` explicitly."""
 
     wt: torch.Tensor
     ctx: Context
+    logical: torch.Tensor | None = None
+    pad: int = 0
 
     def __post_init__(self):
         w = self.wt
@@ -76,6 +110,7 @@ class Ciphertext:
                 f"ciphertext words must be [W={self.ctx.words32}, chunks], got shape "
                 f"{tuple(w.shape)}"
             )
+        check_tag(w, self.logical, self.pad, "ciphertext")
         object.__setattr__(self, "wt", w.contiguous())  # frozen: set once, here
 
     # -- properties ---------------------------------------------------------
@@ -86,21 +121,18 @@ class Ciphertext:
 
     @property
     def chunks(self) -> int:
-        return int(self.wt.shape[-1])
+        """Logical chunk count — what the reference layout has (pads excluded)."""
+        return int(self.wt.shape[-1]) - self.pad
 
     @property
     def physical_chunks(self) -> int:
-        """Device-resident chunk count.  In the JAX package it includes the
-        alignment pad chunks of a lazy payload; the port never pads a
-        product, so it equals `chunks`."""
+        """Device-resident chunk count, pad chunks included."""
         return int(self.wt.shape[-1])
 
     @property
     def is_canonical(self) -> bool:
-        """True: the payload is in the reference's chunk order.  The JAX
-        package answers False for a lazily ordered product; every product of
-        the port is written canonical (csrc/mul.cu)."""
-        return True
+        """True if the physical payload is already in reference chunk order."""
+        return self.logical is None
 
     @property
     def nbytes(self) -> int:
@@ -132,7 +164,10 @@ class Ciphertext:
             "ct.add", chunks_in=t1 + t2, chunks_out=t1 + t2,
             bytes_moved=self.ctx.chunk_count_bytes(2 * (t1 + t2)),
         ):
-            return Ciphertext(core.add_chunks(self.wt, other.wt), self.ctx)
+            tag = order.concat_logical(self.logical, other.logical, t1, t2, device=self.device)
+            return Ciphertext(
+                core.add_chunks(self.wt, other.wt), self.ctx, tag, self.pad + other.pad
+            )
 
     def __mul__(self, other: "Ciphertext") -> "Ciphertext":
         if not isinstance(other, Ciphertext):
@@ -143,29 +178,41 @@ class Ciphertext:
             "ct.mul", chunks_in=t1 + t2, chunks_out=t1 * t2,
             bytes_moved=self.ctx.chunk_count_bytes(t1 + t2 + t1 * t2),
         ):
-            return Ciphertext(dispatch.mul_chunks(self.wt, other.wt), self.ctx)
+            if _EAGER_ORDER:
+                a, b = self.canonical(), other.canonical()
+                return Ciphertext(dispatch.mul_chunks(a.wt, b.wt), self.ctx)
+            out, jmajor, zp_a, zp_b = dispatch.mul_chunks_auto(self.wt, other.wt)
+            return Ciphertext(out, self.ctx, *product_tag(self, other, out, jmajor, zp_a, zp_b))
 
     def apply_permutation(self, p: Permutation) -> "Ciphertext":
         """Apply π per chunk (out bit i = in bit π[i]) via the Beneš
         delta-swap plan — packed-domain, no bit unpacking (bit-exact to the
-        `ops.core.permute_chunks` gather oracle; see ops/permute_benes.py)."""
+        `ops.core.permute_chunks` gather oracle; see ops/permute_benes.py).
+        Chunk positions are untouched (a pad chunk stays zero), so the order
+        tag carries over."""
         if p.n != self.ctx.n:
             raise ValueError(f"permutation length {p.n} != context n {self.ctx.n}")
         with op_metrics().record(
             "ct.permute", chunks_in=self.chunks, chunks_out=self.chunks,
-            bytes_moved=self.ctx.chunk_count_bytes(2 * self.chunks),
+            bytes_moved=self.ctx.chunk_count_bytes(2 * self.physical_chunks),
         ):
-            return Ciphertext(dispatch.permute(self.wt, p.benes_plan()), self.ctx)
+            return Ciphertext(dispatch.permute(self.wt, p.benes_plan()), self.ctx,
+                              self.logical, self.pad)
+
+    # -- chunk order ---------------------------------------------------------
 
     def canonical(self) -> "Ciphertext":
-        """Reference chunk order — what every ciphertext of the port has."""
-        return self
+        """Reference chunk order, pad chunks dropped (one gather on the
+        payload's device; ``self`` if already canonical)."""
+        if self.logical is None:
+            return self
+        return Ciphertext(order.canonicalize(self.wt, self.logical, self.chunks), self.ctx)
 
     # -- interop ------------------------------------------------------------
 
     def chunk_major(self) -> np.ndarray:
         """Host-side chunk-major view in reference order: uint32[chunks, W]."""
-        return layout.words_to_numpy(self.wt).T
+        return layout.words_to_numpy(self.canonical().wt).T
 
     def to_u64(self) -> np.ndarray:
         """Reference-layout uint64 words, flat ``[chunks * words64]`` (host)."""
@@ -189,7 +236,21 @@ class Ciphertext:
         return layout.format_bits(self.chunk_major(), self.ctx.n)
 
     def __repr__(self) -> str:
+        ordr = "canonical" if self.logical is None else "lazy"
+        padinfo = f"+{self.pad}pad" if self.pad else ""
         return (
-            f"Ciphertext(chunks={self.chunks}, W={self.wt.shape[-2]}, "
-            f"device={self.device}, ctx={self.ctx})"
+            f"Ciphertext(chunks={self.chunks}{padinfo}, W={self.wt.shape[-2]}, "
+            f"order={ordr}, device={self.device}, ctx={self.ctx})"
         )
+
+
+def product_tag(x, y, out: torch.Tensor, jmajor: bool, zp_a: int, zp_b: int) -> tuple:
+    """``(logical, pad)`` of the product `out` of x and y (ciphertexts or
+    batches) on a route that reported ``(jmajor, zp_a, zp_b)``: the
+    operands' tags extended with the route's pads, crossed (JAX
+    csgn_tpu/ciphertext.py:180-185)."""
+    dev = out.device
+    la = order.extend_with_pads(x.logical, x.chunks, zp_a, device=dev)
+    lb = order.extend_with_pads(y.logical, y.chunks, zp_b, device=dev)
+    tag = order.cross_logical(la, lb, x.chunks, y.chunks, jmajor=jmajor, device=dev)
+    return tag, int(out.shape[-1]) - x.chunks * y.chunks

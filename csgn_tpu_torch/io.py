@@ -188,6 +188,11 @@ def _block_entries(objects: dict, mesh, axis: str) -> tuple[dict, dict]:
         if not isinstance(obj, Ciphertext):
             aux[name] = obj
             continue
+        if not obj.is_canonical:
+            raise ValueError(
+                f"{name!r}: sharded checkpoint requires a canonical payload "
+                "(resolve the order tag before checkpointing)"
+            )
         c = obj.chunks
         start = 0 if mesh is None else mesh.coord(axis) * c
         blocks[name] = [start, c, f"{name}.c{start}.npy", obj.ctx.n, obj.ctx.d]
@@ -199,7 +204,10 @@ def save_state_sharded(dirpath, objects: dict, mesh=None, axis: str = "c") -> No
     ciphertext payloads as block files, the rest in ``aux.npz``, and the
     manifest (the JAX package's `save_state_sharded` format).
 
-    Without `mesh`, one process writes each ciphertext as one block.  With a
+    Ciphertexts must be canonical (a lazy tag would need a gather to
+    resolve, which this format exists to avoid; the JAX package refuses
+    them too).  Without `mesh`, one process writes each ciphertext as one
+    block.  With a
     mesh, call it from every rank of the mesh (a collective), each with its
     own blocks of the chunk-sharded ciphertexts (equal sizes, as
     `parallel.shard_ciphertext` cuts them); keys and permutations are the

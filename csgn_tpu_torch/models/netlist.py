@@ -464,7 +464,8 @@ def eval_homomorphic_batch(
     if b is None:
         raise ValueError("circuit has no inputs")
     _check_netlist_budget(netlist, flat, one, b, budget_bytes)
-    one_b = CiphertextBatch(one.wt[None].expand(b, *one.wt.shape).contiguous(), one.ctx)
+    ow = one.canonical().wt
+    one_b = CiphertextBatch(ow[None].expand(b, *ow.shape).contiguous(), one.ctx)
 
     wires: dict[int, CiphertextBatch] = dict(enumerate(flat))
     for g in netlist.gates:

@@ -2,12 +2,11 @@
 
 The JAX package routes by backend, size and lane alignment (flat / tiled /
 grouped / ragged / j-major kernels, `MUL_PALLAS_MIN_OUT`) because Mosaic
-needs 128-lane-aligned blocks and VMEM-resident operands.  The CUDA multiply
-writes the canonical i-major product for any shape, so here the route is the
-device alone: a CUDA tensor goes to the kernel, a CPU tensor to the plain
-torch version.  Which route served each call is counted in `op_metrics()`
-as ``dispatch.<op>.<cuda|plain>``; on the card the multiply then picks one
-of csrc/mul.cu's modes from the shapes (`kernels.mul_mode`, counted as
+needs 128-lane-aligned blocks and VMEM-resident operands.  Here a CPU
+tensor goes to the plain torch version and a CUDA tensor to the kernel;
+which route served each call is counted in `op_metrics()` as
+``dispatch.<op>.<cuda|plain>``.  On the card the multiply then picks one of
+csrc/mul.cu's modes from the shapes (`kernels.mul_mode`, counted as
 ``<wrapper>.<mode>``).  The JAX route names map onto those modes:
 
   ======================================================  ===================
@@ -19,20 +18,23 @@ of csrc/mul.cu's modes from the shapes (`kernels.mul_mode`, counted as
   ``mul.grouped``, ``mul_dec.grouped``                    unaligned
   ``mul.ragged``, ``mul_dec.ragged``, ``*.b_ragged``      unaligned (no pads),
                                                           tiled for a large b
-  ``*.jm_flat``, ``*.jm_tiled``, ``*.jm_ragged``,         the canonical mode
-  ``*.jm_xla`` (j-major: operands swapped, order tag)     of the same shape
+  ``*.jm_flat``, ``*.jm_tiled``, ``*.jm_ragged``,         the mode of the shape
+  ``*.jm_xla`` (j-major: operands swapped, order tag)     (canonical order)
   ``mul.xla``, ``mul_dec.xla``, ``*.b_xla``               the mode of the shape
   ======================================================  ===================
 
-There are no ``*_auto`` or ``mul_chunks_jmajor`` counterparts: every product
-is canonical, with exactly t1*t2 chunks.
-
-Batched ops take ``[B, W, C]`` words and always return canonical i-major
-order with no pad chunks (the JAX package's `mul_chunks_batched` may return
-j-major or padded products with an order tag; the port never does), so
-`CiphertextBatch` needs no tag.  The permutations run the Beneš kernels of
-`ops.benes_kernels` at every size (the JAX package switches to Pallas from
-`BENES_PALLAS_MIN_C` chunks; the CUDA kernel has no such threshold).
+The canonical functions (`mul_chunks`, `mul_decrypt`, `mul_decrypt_count`,
+`mul_decrypt_batched`) always write the reference's i-major order.  The
+``*_auto`` functions and `mul_chunks_batched` serve callers that carry an
+order tag (`ops.order`): they return JAX's tuples ``(words, jmajor, zpad_a,
+zpad_b[, parity])``.  On the card and on the CPU they write the canonical
+order with no pad chunks (the JAX package likewise routes only on its TPU
+backend, so both packages give the same words on the CPU).  A j-major
+product is made only on request (`mul_chunks_jmajor`): on an H100 the
+swapped operands at 16 x 2^19 took 0.04 ms less than the tiled mode, but a
+consumer that needs canonical order then pays a 5 ms gather (PERF.md).
+The permutations run the Beneš kernels of `ops.benes_kernels` at every
+size.
 """
 
 from __future__ import annotations
@@ -44,7 +46,11 @@ from csgn_tpu_torch.utils.metrics import op_metrics
 
 __all__ = [
     "mul_chunks",
+    "mul_chunks_auto",
+    "mul_chunks_jmajor",
     "mul_decrypt",
+    "mul_decrypt_auto",
+    "mul_decrypt_batched_auto",
     "mul_decrypt_count",
     "decrypt_parity",
     "decrypt_count",
@@ -103,16 +109,54 @@ def chunk_matches(words: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return kernels.chunk_matches(words, mask)
 
 
-def mul_chunks_batched(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """[B,W,t1] x [B,W,t2] -> [B,W,t1*t2]: element i is the canonical cross
-    product of the operands' elements i (one launch for the batch)."""
+def mul_chunks_jmajor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[W,t1] x [W,t2] -> [W, t1*t2] in **j-major** physical order (column
+    p = j*t1 + i holds a_i & b_j): the canonical product of the swapped
+    operands, one launch of csrc/mul.cu in the mode `kernels.mul_mode` picks
+    for (t2, t1).  Batched [B,W,*] operands likewise."""
+    _path("mul_jm", a)
+    return kernels.mul_chunks(b, a)
+
+
+def mul_chunks_auto(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, bool, int, int]:
+    """The product with its order: ``(words, jmajor, zpad_a, zpad_b)`` (the
+    JAX package's tuple).  The port's route is canonical with no pad chunks:
+    ``(mul_chunks(a, b), False, 0, 0)``."""
+    _path("mul", a)
+    return kernels.mul_chunks(a, b), False, 0, 0
+
+
+def mul_decrypt_auto(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor):
+    """Fused multiply + decrypt on `mul_chunks_auto`'s route: ``(words,
+    jmajor, zpad_a, zpad_b, parity)``.  The parity is a reduction over the
+    multiset of product chunks (reference src/SecretKey.cpp:126-140), the
+    same in either chunk order."""
+    _path("mul_dec", a)
+    out, parity = kernels.mul_decrypt(a, b, mask)
+    return out, False, 0, 0, parity
+
+
+def mul_chunks_batched(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, bool, int, int]:
+    """Batched `mul_chunks_auto`: [B,W,t1] x [B,W,t2] -> ``([B,W,phys],
+    jmajor, zpad_a, zpad_b)``, element i the cross product of the operands'
+    elements i, every element in one physical order (one launch for the
+    batch; the route is the per-element shape's)."""
     _path("mul_batched", a)
-    return kernels.mul_chunks(a, b)
+    return kernels.mul_chunks(a, b), False, 0, 0
+
+
+def mul_decrypt_batched_auto(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor):
+    """Batched fused multiply + decrypt on `mul_chunks_batched`'s route:
+    ``(words [B,W,phys], jmajor, zpad_a, zpad_b, parity int64[B])``."""
+    _path("mul_dec_batched", a)
+    out, parity = kernels.mul_decrypt(a, b, mask)
+    return out, False, 0, 0, parity
 
 
 def mul_decrypt_batched(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor):
-    """Batched fused multiply + decrypt: ``(prod [B,W,t1*t2], parity int64[B])``.
-    Bit-exact to ``decrypt_parity(mul_chunks_batched(a, b), mask)``."""
+    """Batched fused multiply + decrypt in canonical order: ``(prod
+    [B,W,t1*t2] i-major, parity int64[B])``; callers that carry an order tag
+    use `mul_decrypt_batched_auto`."""
     _path("mul_dec_batched", a)
     return kernels.mul_decrypt(a, b, mask)
 

@@ -74,7 +74,7 @@ def sharded_mul_batch(a: torch.Tensor, b: torch.Tensor, mesh: Mesh) -> torch.Ten
         "sharded.mul_batch", chunks_in=a.shape[0] * (t1 + t2), chunks_out=a.shape[0] * t1 * t2,
         bytes_moved=a.shape[0] * (t1 + t2 + t1 * t2) * a.shape[-2] * 4,
     ):
-        return dispatch.mul_chunks_batched(a, gather_chunks(b, mesh, CHUNK_AXIS))
+        return dispatch.mul_chunks(a, gather_chunks(b, mesh, CHUNK_AXIS))
 
 
 def sharded_decrypt_batch(words: torch.Tensor, mask: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -75,6 +75,7 @@ def global_chunk_mesh() -> Mesh:
 def pad_chunks_to(ct: Ciphertext, multiple: int) -> tuple[Ciphertext, int]:
     """Zero-pad the chunk axis to a multiple (zero chunks are decrypt-neutral:
     they never match a nonzero mask).  Returns (padded, original_chunks)."""
+    ct = ct.canonical()  # sharding pads are untracked: resolve any order tag
     c = ct.chunks
     cp = -(-c // multiple) * multiple
     if cp == c:

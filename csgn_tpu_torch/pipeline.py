@@ -112,9 +112,12 @@ def mul_chain(cts: list[Ciphertext], *, budget_bytes: int | None = DEFAULT) -> C
     """
     _check_contexts(cts)
     _check_chain_budget(cts, budget_bytes)
-    acc = cts[0].wt
-    for ct in cts[1:]:
-        acc = dispatch.mul_chunks(acc, ct.wt)
+    # Canonical inputs (a no-op for fresh ciphertexts): the fold writes the
+    # reference i-major order, so its result carries no tag.
+    wts = [ct.canonical().wt for ct in cts]
+    acc = wts[0]
+    for wt in wts[1:]:
+        acc = dispatch.mul_chunks(acc, wt)
     return Ciphertext(acc, cts[0].ctx)
 
 
@@ -131,11 +134,12 @@ def mul_chain_decrypt(
         raise ValueError("secret key context mismatch")
     _check_chain_budget(cts, budget_bytes)
     mask = sk.mask_words
-    acc = cts[0].wt
-    for ct in cts[1:-1]:
-        acc = dispatch.mul_chunks(acc, ct.wt)
+    wts = [ct.canonical().wt for ct in cts]
+    acc = wts[0]
+    for wt in wts[1:-1]:
+        acc = dispatch.mul_chunks(acc, wt)
     if len(cts) > 1:
-        words, parity = dispatch.mul_decrypt(acc, cts[-1].wt, mask)
+        words, parity = dispatch.mul_decrypt(acc, wts[-1], mask)
     else:
         words, parity = acc, dispatch.decrypt_parity(acc, mask)
     return Ciphertext(words, cts[0].ctx), Plaintext(int(parity))
@@ -145,6 +149,7 @@ def _sharded_step(acc: torch.Tensor, ct: Ciphertext, mesh: Mesh, axis: str) -> t
     """One fold step on this rank's accumulator block: an operand whose chunk
     count divides the axis is cut into blocks and all-gathered, any other
     stays replicated (the JAX package's choice per operand)."""
+    ct = ct.canonical()
     if ct.chunks % mesh.shape[axis] == 0:
         return sharded_mul_allgather(acc, shard_ciphertext(ct, mesh, axis).wt, mesh, axis)
     return sharded_mul_broadcast(acc, ct.wt.to(mesh.device), mesh, axis)
@@ -163,7 +168,7 @@ def mul_chain_sharded(cts: list[Ciphertext], mesh: Mesh, axis: str = CHUNK_AXIS)
     Returns this rank's block of the product.
     """
     _check_contexts(cts)
-    acc = cts[0].wt
+    acc = cts[0].canonical().wt
     for ct in cts[1:]:
         acc = _sharded_step(acc, ct, mesh, axis)
     return Ciphertext(acc, cts[0].ctx)
@@ -186,7 +191,7 @@ def mul_chain_sharded_decrypt(cts: list[Ciphertext], sk, mesh: Mesh,
     if len(cts) == 1:
         return cts[0], Plaintext(int(sharded_decrypt_parity(cts[0].wt, mask, mesh, axis)))
     acc = mul_chain_sharded(cts[:-1], mesh, axis).wt
-    last = cts[-1]
+    last = cts[-1].canonical()
     if last.chunks % mesh.shape[axis] == 0:
         words, parity = sharded_mul_decrypt(acc, shard_ciphertext(last, mesh, axis).wt, mask,
                                             mesh, axis)

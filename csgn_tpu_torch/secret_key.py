@@ -29,7 +29,8 @@ import torch
 from csgn_tpu_torch import layout
 from csgn_tpu_torch._device import resolve_device
 from csgn_tpu_torch.batch import CiphertextBatch
-from csgn_tpu_torch.ciphertext import Ciphertext
+from csgn_tpu_torch import ciphertext as ct_mod
+from csgn_tpu_torch.ciphertext import Ciphertext, product_tag
 from csgn_tpu_torch.circuit import collect_leaves, fold_many, lift, pack_fleet_bits, \
     unpack_fleet_bits
 from csgn_tpu_torch.context import Context
@@ -168,11 +169,13 @@ class SecretKey:
             raise ValueError("ciphertext context mismatch")
 
     def decrypt(self, ciphertext: Ciphertext) -> Plaintext:
-        """Decrypt any-length ciphertext: parity of per-chunk ANDs."""
+        """Decrypt any-length ciphertext: parity of per-chunk ANDs, over the
+        physical payload (the parity ignores chunk order, and pad chunks
+        never match)."""
         self._check(ciphertext)
         with op_metrics().record(
             "key.decrypt", chunks_in=ciphertext.chunks,
-            bytes_moved=self.ctx.chunk_count_bytes(ciphertext.chunks),
+            bytes_moved=self.ctx.chunk_count_bytes(ciphertext.physical_chunks),
         ):
             return Plaintext(int(dispatch.decrypt_parity(ciphertext.wt, self._mask_t)))
 
@@ -181,7 +184,8 @@ class SecretKey:
 
         Accepts either fresh single-chunk batches ``int32[W, batch]`` (parity
         of one chunk == its match bit) or a `CiphertextBatch` / grown payload
-        ``int32[batch, W, chunks]`` (per-element parity across chunks).
+        ``int32[batch, W, chunks]`` (per-element parity across chunks; pad
+        chunks never match, so lazy payloads decrypt directly).
         """
         w = self.ctx.words32
         if isinstance(words, CiphertextBatch):
@@ -218,8 +222,11 @@ class SecretKey:
 
         The product is written once and its decrypt count is taken in the
         same kernel, so the decrypt's full re-read of the product is gone
-        (csrc/mul.cu).  Bit-exact to ``self.decrypt(c1 * c2)``; the product
-        is canonical, like ``*``.
+        (csrc/mul.cu).  It takes ``*``'s route
+        (`ops.dispatch.mul_decrypt_auto`; the parity is chunk-order
+        independent), so the product carries the same order tag as ``c1 *
+        c2`` (canonical under `set_eager_order(True)`).  Bit-exact to
+        ``self.decrypt(c1 * c2)``.
         """
         self._check(c1)
         self._check(c2)
@@ -228,12 +235,19 @@ class SecretKey:
             "key.mul_and_decrypt", chunks_in=t1 + t2, chunks_out=t1 * t2,
             bytes_moved=self.ctx.chunk_count_bytes(t1 + t2 + t1 * t2),
         ):
-            out, parity = dispatch.mul_decrypt(c1.wt, c2.wt, self._mask_t)
-            return Ciphertext(out, self.ctx), Plaintext(int(parity))
+            if ct_mod._EAGER_ORDER:
+                a, b = c1.canonical(), c2.canonical()
+                out, parity = dispatch.mul_decrypt(a.wt, b.wt, self._mask_t)
+                return Ciphertext(out, self.ctx), Plaintext(int(parity))
+            out, jmajor, zp_a, zp_b, parity = dispatch.mul_decrypt_auto(c1.wt, c2.wt,
+                                                                        self._mask_t)
+            tag = product_tag(c1, c2, out, jmajor, zp_a, zp_b)
+            return Ciphertext(out, self.ctx, *tag), Plaintext(int(parity))
 
     def mul_and_decrypt_batch(self, cb1: CiphertextBatch, cb2: CiphertextBatch):
         """Batched fused multiply + decrypt: ``(cb1 * cb2, bits int32[B])`` —
-        every element's product and its decrypt parity in one launch.
+        every element's product and its decrypt parity in one launch, on
+        `ops.dispatch.mul_decrypt_batched_auto`'s route (one shared tag).
         Bit-exact to ``self.decrypt_batch(cb1 * cb2)``."""
         if not isinstance(cb1, CiphertextBatch) or not isinstance(cb2, CiphertextBatch):
             raise TypeError("mul_and_decrypt_batch expects CiphertextBatch operands")
@@ -247,8 +261,10 @@ class SecretKey:
             chunks_out=cb1.batch * t1 * t2,
             bytes_moved=cb1.batch * self.ctx.chunk_count_bytes(t1 + t2 + t1 * t2),
         ):
-            out, bits = dispatch.mul_decrypt_batched(cb1.wt, cb2.wt, self._mask_t)
-            return CiphertextBatch(out, self.ctx), bits.to(torch.int32)
+            out, jmajor, zp_a, zp_b, bits = dispatch.mul_decrypt_batched_auto(
+                cb1.wt, cb2.wt, self._mask_t)
+            tag = product_tag(cb1, cb2, out, jmajor, zp_a, zp_b)
+            return CiphertextBatch(out, self.ctx, *tag), bits.to(torch.int32)
 
     def decrypt_product(self, cts: list[Ciphertext]) -> Plaintext:
         """Decrypt a product WITHOUT materializing it: Dec(∏ cᵢ) = ∧ Dec(cᵢ)."""
@@ -354,7 +370,8 @@ class SecretKey:
         The reference's permute-then-decrypt flow (tests/timings.cpp:56-66),
         staged (K8 then K3) as the JAX package keeps it (see
         `ops.dispatch.permute_decrypt`).  By the transform identity the
-        result equals ``self.decrypt(ciphertext)``.
+        result equals ``self.decrypt(ciphertext)``.  The order tag and pad
+        chunks carry over.
         """
         self._check(ciphertext)
         if p.n != self.ctx.n:
@@ -363,10 +380,11 @@ class SecretKey:
         with op_metrics().record(
             "key.permute_and_decrypt", chunks_in=ciphertext.chunks,
             chunks_out=ciphertext.chunks,
-            bytes_moved=2 * self.ctx.chunk_count_bytes(ciphertext.chunks),
+            bytes_moved=2 * self.ctx.chunk_count_bytes(ciphertext.physical_chunks),
         ):
             out, parity = dispatch.permute_decrypt(ciphertext.wt, p.benes_plan(), psk.mask_words)
-            return Ciphertext(out, self.ctx), Plaintext(int(parity))
+            return (Ciphertext(out, self.ctx, ciphertext.logical, ciphertext.pad),
+                    Plaintext(int(parity)))
 
     def apply_permutation(self, p: Permutation) -> "SecretKey":
         """Key transform: Dec_{π(k)}(π(c)) = Dec_k(c), a new key on the same

@@ -101,8 +101,20 @@ class _Failed:
 
 
 def _stack(cts: list[Ciphertext]) -> CiphertextBatch:
-    """Stack same-shape ciphertexts (the port's are always canonical)."""
-    return CiphertextBatch(torch.stack([c.wt for c in cts]), cts[0].ctx)
+    """Stack same-shape ciphertexts with one copy when the tags allow.
+
+    All-canonical (fresh or already-canonicalized) requests stack raw;
+    requests sharing ONE tag object (e.g. sliced from the same batch) keep
+    it shared; mixed tags fall back to `CiphertextBatch.stack`, which
+    canonicalizes each element (a gather per element — correct, not free).
+    """
+    first = cts[0]
+    if all(c.logical is None for c in cts):
+        return CiphertextBatch(torch.stack([c.wt for c in cts]), first.ctx)
+    if all(c.logical is first.logical and c.pad == first.pad for c in cts):
+        return CiphertextBatch(torch.stack([c.wt for c in cts]), first.ctx, first.logical,
+                               first.pad)
+    return CiphertextBatch.stack(cts)
 
 
 class BatchExecutor:

@@ -155,15 +155,15 @@ class Sweep:
         for t1, t2 in shapes:
             a, b = self.words(t1), self.words(t2)
             before = dict(kernels.LAUNCHES)
-            got = (Ciphertext(a, ctx) * Ciphertext(b, ctx)).wt
+            got = (Ciphertext(a, ctx) * Ciphertext(b, ctx)).canonical().wt
             ok = torch.equal(got, kernels.mul_chunks_plain(a, b))
             self.report(f"mul auto {t1}x{t2} mode={self.mode(t1, t2)}", ok, before)
 
     def _mul_and_decrypt(self, label: str, ca: Ciphertext, cb: Ciphertext) -> None:
         before = dict(kernels.LAUNCHES)
         prod, par = self.sk.mul_and_decrypt(ca, cb)
-        want = kernels.mul_chunks_plain(ca.wt, cb.wt)
-        ok = torch.equal(prod.wt, want) and int(par) == int(
+        want = kernels.mul_chunks_plain(ca.canonical().wt, cb.canonical().wt)
+        ok = torch.equal(prod.canonical().wt, want) and int(par) == int(
             kernels.decrypt_parity_plain(want, self.mask))
         self.report(f"{label} mode={self.mode(ca.chunks, cb.chunks)}", ok, before,
                     f" parity={int(par)}")

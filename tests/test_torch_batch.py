@@ -104,7 +104,8 @@ def test_batch_decrypts_match_jax(request, ctx_name):
 
 def test_batched_kernels_match_2d_calls_and_jax(ctx):
     """K1-K3 on [B, W, C] equal their 2-D calls element by element, and the
-    batched dispatch equals csgn_tpu's (canonical, no pads)."""
+    batched dispatch equals csgn_tpu's, 4-tuple and all (canonical on the
+    CPU, no pads)."""
     rng = np.random.default_rng(9)
     mask = jl.bit_positions_to_mask(rng.choice(ctx.n, ctx.d, replace=False), ctx.n)
     a = rng.integers(0, 2**32, (4, ctx.words32, 3), dtype=np.uint32) & ctx.valid_mask[:, None]
@@ -113,9 +114,9 @@ def test_batched_kernels_match_2d_calls_and_jax(ctx):
     b[:, :, [5, 77]] |= mask[:, None]
     ta, tb, tm = (words_from_numpy(x, "cpu") for x in (a, b, mask))
 
-    prod = dispatch.mul_chunks_batched(ta, tb)
+    prod, *route = dispatch.mul_chunks_batched(ta, tb)
     jprod, jmajor, zpa, zpb = jdispatch.mul_chunks_batched(jnp.asarray(a), jnp.asarray(b))
-    assert (jmajor, zpa, zpb) == (False, 0, 0)
+    assert (jmajor, zpa, zpb) == (False, 0, 0) == tuple(route)
     np.testing.assert_array_equal(words_to_numpy(prod), np.asarray(jprod))
     prod2, par = dispatch.mul_decrypt_batched(ta, tb, tm)
     jprod2, jpar = jdispatch.mul_decrypt_batched(jnp.asarray(a), jnp.asarray(b), jnp.asarray(mask))

@@ -955,3 +955,34 @@ def test_bench_program_on_card(dev, monkeypatch):
     with pytest.raises(bench.BenchFailure, match="fused parity"):
         bench.check_product(_words(CTX, 16, 1, dev), _words(CTX, 256, 2, dev),
                             _key(CTX, 3, dev).mask_words)
+
+
+@pytest.mark.parametrize("t1,t2", [(16, 1 << 19), (20, 300000), (17, (1 << 19) + 1)])
+def test_streamed_product_is_canonical_and_jmajor_canonicalizes(dev, t1, t2):
+    """Where b streams, `*` and `mul_and_decrypt` stay on the canonical
+    tiled route; the j-major product of the same operands
+    (`mul_chunks_jmajor`, tagged) resolves to the canonical kernel's words,
+    decrypts to the canonical parity, and keeps its tag right through
+    permute and add."""
+    from csgn_tpu_torch.ops import dispatch, order
+
+    sk = _key(CTX, t1, dev)
+    a = Ciphertext(_words(CTX, t1, 1, dev, sk.mask, forced=range(0, t1, 3)), CTX)
+    b = Ciphertext(_words(CTX, t2, 2, dev, sk.mask, forced=range(0, t2, 1001)), CTX)
+    before = kernels.LAUNCHES["mul_decrypt_tiled"]
+    prod = a * b
+    prod2, parity = sk.mul_and_decrypt(a, b)
+    assert prod.is_canonical and prod2.is_canonical
+    assert kernels.LAUNCHES["mul_decrypt_tiled"] == before + 1
+    want, want_parity = kernels.mul_decrypt(a.wt, b.wt, sk.mask_words)
+    assert torch.equal(prod.wt, want) and torch.equal(prod2.wt, want)
+    assert int(parity) == int(want_parity) == int(core.decrypt_parity(want, sk.mask_words))
+    jm = Ciphertext(dispatch.mul_chunks_jmajor(a.wt, b.wt), CTX,
+                    order.cross_logical(None, None, t1, t2, jmajor=True, device=dev))
+    assert not jm.is_canonical and torch.equal(jm.wt, kernels.mul_chunks(b.wt, a.wt))
+    assert torch.equal(jm.canonical().wt, want) and int(sk.decrypt(jm)) == int(want_parity)
+    p = Permutation.random(CTX, rng.key(t1))
+    assert torch.equal(jm.apply_permutation(p).canonical().wt,
+                       benes_kernels.apply_benes(want, p.benes_plan()))
+    s = jm + a
+    assert torch.equal(s.canonical().wt, torch.cat([want, a.wt], dim=1))

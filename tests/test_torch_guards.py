@@ -14,7 +14,7 @@ import torch
 
 from csgn_tpu_torch import Ciphertext, Context, Permutation, SecretKey, rng
 from csgn_tpu_torch.layout import words_from_numpy
-from csgn_tpu_torch.ops import benes_kernels, encrypt_kernels, kernels
+from csgn_tpu_torch.ops import benes_kernels, dispatch, encrypt_kernels, kernels, order
 from csgn_tpu_torch.ops import permute_benes as pb
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -39,7 +39,8 @@ def test_import_pulls_in_no_jax():
         "import sys, csgn_tpu_torch, csgn_tpu_torch.convert, csgn_tpu_torch.ops.dispatch, "
         "csgn_tpu_torch.ops.encrypt_kernels, csgn_tpu_torch.utils, csgn_tpu_torch.batch, "
         "csgn_tpu_torch.permutation, csgn_tpu_torch.ops.benes_kernels, "
-        "csgn_tpu_torch.ops.permute_benes, csgn_tpu_torch.pipeline, csgn_tpu_torch.circuit, "
+        "csgn_tpu_torch.ops.permute_benes, csgn_tpu_torch.ops.order, "
+        "csgn_tpu_torch.ops.permute_mxu, csgn_tpu_torch.pipeline, csgn_tpu_torch.circuit, "
         "csgn_tpu_torch.serve, csgn_tpu_torch.models, csgn_tpu_torch.models.netlist, "
         "csgn_tpu_torch.models.aes, csgn_tpu_torch.models.sha256, "
         "csgn_tpu_torch.models.circuits, csgn_tpu_torch.models.linear, "
@@ -273,9 +274,10 @@ def test_cuda_tests_skip_with_reason_without_a_gpu():
 
 
 def test_order_tag_api():
-    """The JAX package's order-tag names exist: every product of the port is
-    canonical with no pad chunks, and `set_eager_order` keeps the flag and
-    returns the previous setting, changing no result."""
+    """The JAX package's order-tag API: canonical operands at aligned shapes
+    give canonical products with no pad chunks (every CPU product is
+    canonical), `set_eager_order` returns the previous setting, and under
+    it a product of tagged operands is canonical with the lazy bytes."""
     import csgn_tpu_torch
     from csgn_tpu_torch import CiphertextBatch, set_eager_order
 
@@ -287,14 +289,24 @@ def test_order_tag_api():
     assert lazy.is_canonical and lazy.physical_chunks == lazy.chunks == 15
     batch = CiphertextBatch.stack([a, a]) * CiphertextBatch.stack([b, b])
     assert batch.is_canonical and batch.physical_chunks == batch.chunks == 15
+    # A j-major operand (as a JAX TPU product crosses) carries a tag into `*`.
+    jm = Ciphertext(dispatch.mul_chunks_jmajor(a.wt, b.wt), CTX,
+                    order.cross_logical(None, None, 3, 5, jmajor=True, device="cpu"))
+    assert not jm.is_canonical and torch.equal(jm.canonical().wt, lazy.wt)
+    tagged = jm * a
+    assert not tagged.is_canonical and tagged.physical_chunks == tagged.chunks == 45
     prev = set_eager_order(True)
     try:
         assert set_eager_order(True) is True
         eager = a * b
         assert eager.is_canonical and torch.equal(eager.wt, lazy.wt)
+        eager_tagged = jm * a
+        assert eager_tagged.is_canonical and torch.equal(eager_tagged.wt,
+                                                         tagged.canonical().wt)
     finally:
         assert set_eager_order(prev) is True
     assert set_eager_order(prev) is prev
+    assert (eager_tagged.to_u64() == tagged.to_u64()).all()
 
 
 @pytest.mark.parametrize("wp", [1024, 4096])
