@@ -21,6 +21,7 @@ ciphertext words and permutations are the JAX CLI's.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import struct
 import sys
@@ -32,6 +33,7 @@ import torch
 from csgn_tpu_torch import rng
 from csgn_tpu_torch._device import resolve_device
 from csgn_tpu_torch.config import RunConfig
+from csgn_tpu_torch.utils.metrics import op_metrics
 
 __all__ = ["main"]
 
@@ -100,7 +102,6 @@ def cmd_timings(cfg: RunConfig, dev: torch.device) -> int:
     ``value_vs_anchor``: the multiply's share of the write floor."""
     from csgn_tpu_torch import Ciphertext, Permutation, SecretKey
     from csgn_tpu_torch.ops import core, dispatch, kernels
-    from csgn_tpu_torch.utils.metrics import op_metrics
     from csgn_tpu_torch.utils.timing import Timer, device_median_time
 
     ctx = cfg.context()
@@ -161,7 +162,7 @@ def cmd_timings(cfg: RunConfig, dev: torch.device) -> int:
     print(f"After multiplication ciphertext size: {(c1 * c1).size()} bytes")
     print(f"After addition ciphertext size: {(c1 + c1).size()} bytes")
 
-    print("\nper-op metrics (host dispatch wall time):")
+    print("\nper-op metrics (host time per op):")
     print(op_metrics().format_table())
     return 0
 
@@ -237,15 +238,16 @@ def main(argv=None) -> int:
                         "plain torch versions)")
     p.add_argument(
         "--metrics", action="store_true",
-        help="print the per-op metrics table after the command",
+        help="print the per-op table after the command: calls, chunks, MB and host time per op",
     )
     args = p.parse_args(argv)
     cfg = _load_config(args)
-    rc = COMMANDS[args.command](cfg, resolve_device(args.device))
+    # The table's ms are the ops' spans, recorded for this command only.
+    table = args.metrics or args.command == "timings"
+    with op_metrics().recording() if table else contextlib.nullcontext():
+        rc = COMMANDS[args.command](cfg, resolve_device(args.device))
     if args.metrics:
-        from csgn_tpu_torch.utils.metrics import op_metrics
-
-        print("\nper-op metrics (host dispatch wall time):")
+        print("\nper-op metrics (host time per op):")
         print(op_metrics().format_table())
     return rc
 

@@ -13,7 +13,8 @@ The plain versions are `ops.permute_benes.apply_benes`, `apply_benes_batch`
 and `apply_benes_decrypt_plain`.  Routing is by the tensors' device, as in
 `ops.kernels`: a CPU tensor goes to the plain version, a CUDA tensor
 launches the kernel or raises.  Each launch adds one to
-``LAUNCHES[<wrapper name>]``.
+``LAUNCHES[<wrapper name>]``, and its CUDA body is the span
+``launch.<wrapper name>`` while spans are recorded (`utils.metrics`).
 
 csrc/benes.cu and csrc/benes_lanes.cu have three paths, chosen by the
 network's width WP = n_pad / 32 (`benes_path`), all counted under the same
@@ -48,6 +49,7 @@ import torch
 from csgn_tpu_torch.ops import permute_benes as pb
 from csgn_tpu_torch.ops._build import LAUNCHES, check, grids, lib, ptr, stream_of
 from csgn_tpu_torch.ops.kernels import _check_operands
+from csgn_tpu_torch.utils.metrics import op_metrics
 
 __all__ = [
     "LAUNCHES",
@@ -142,34 +144,37 @@ def network_ops(plan) -> int | list[int]:
 
 def _benes_cuda(name: str, words: torch.Tensor, plan, plan_stride: int,
                 key: torch.Tensor | None = None, path: str | None = None):
-    """Launch csrc/benes.cu on `path` (default: `benes_path`'s pick)."""
+    """Launch csrc/benes.cu on `path` (default: `benes_path`'s pick), under
+    the span ``launch.<name>``."""
     path = path or benes_path(plan.words_pad)
     if path in ("register", "lanes") and plan.deltas != network_deltas(plan.n_pad):
         raise ValueError(f"{name}: stage deltas {plan.deltas} are not the "
                          f"{plan.n_pad}-bit network's")
-    masks, sched = pb.device_operands(plan, words.device)
-    if path == "lanes":
-        masks = lane_masks(plan, words.device)
-    *lead, w, c = words.shape
-    out = torch.empty_like(words)
-    count = None if key is None else torch.zeros(lead, dtype=torch.int64, device=words.device)
-    if words.numel():
-        batch = lead[0] if lead else 1
-        scratch = None
-        if path == "global" or (path == "wide" and plan.words_pad > WIDE_TILE_WORDS_PAD):
-            blocks = -(-c // _WIDE_GLOBAL_CHUNKS)
-            scratch = torch.empty((batch, blocks * _WIDE_GLOBAL_CHUNKS, plan.words_pad),
-                                  dtype=torch.int32, device=words.device)
-        with torch.cuda.device(words.device):
-            check(name, lib().csgn_benes(
-                ptr(words), ptr(masks), ptr(sched), ptr(key), ptr(out), ptr(count),
-                ptr(scratch), batch, w, c, plan.words_pad, len(plan.deltas),
-                min(w, plan.words_pad), plan_stride, _PATH_CODES[path], stream_of(words)
-            ))
-        LAUNCHES[name] += grids(batch)
-        if path in _PATH_LAUNCHES:
-            LAUNCHES[_PATH_LAUNCHES[path]] += grids(batch)
-    return out, count
+    with op_metrics().span(f"launch.{name}"):
+        masks, sched = pb.device_operands(plan, words.device)
+        if path == "lanes":
+            masks = lane_masks(plan, words.device)
+        *lead, w, c = words.shape
+        out = torch.empty_like(words)
+        count = None if key is None else torch.zeros(lead, dtype=torch.int64,
+                                                     device=words.device)
+        if words.numel():
+            batch = lead[0] if lead else 1
+            scratch = None
+            if path == "global" or (path == "wide" and plan.words_pad > WIDE_TILE_WORDS_PAD):
+                blocks = -(-c // _WIDE_GLOBAL_CHUNKS)
+                scratch = torch.empty((batch, blocks * _WIDE_GLOBAL_CHUNKS, plan.words_pad),
+                                      dtype=torch.int32, device=words.device)
+            with torch.cuda.device(words.device):
+                check(name, lib().csgn_benes(
+                    ptr(words), ptr(masks), ptr(sched), ptr(key), ptr(out), ptr(count),
+                    ptr(scratch), batch, w, c, plan.words_pad, len(plan.deltas),
+                    min(w, plan.words_pad), plan_stride, _PATH_CODES[path], stream_of(words)
+                ))
+            LAUNCHES[name] += grids(batch)
+            if path in _PATH_LAUNCHES:
+                LAUNCHES[_PATH_LAUNCHES[path]] += grids(batch)
+        return out, count
 
 
 def apply_benes(words: torch.Tensor, plan: pb.BenesPlan) -> torch.Tensor:

@@ -4,10 +4,12 @@ The JAX package routes by backend, size and lane alignment (flat / tiled /
 grouped / ragged / j-major kernels, `MUL_PALLAS_MIN_OUT`) because Mosaic
 needs 128-lane-aligned blocks and VMEM-resident operands.  Here a CPU
 tensor goes to the plain torch version and a CUDA tensor to the kernel;
-which route served each call is counted in `op_metrics()` as
-``dispatch.<op>.<cuda|plain>``.  On the card the multiply then picks one of
-csrc/mul.cu's modes from the shapes (`kernels.mul_mode`, counted as
-``<wrapper>.<mode>``).  The JAX route names map onto those modes:
+which route served each call is counted in `op_metrics()`, always, once a
+call, as ``dispatch.<op>.<cuda|plain>``.  On the card the multiply then
+picks one of csrc/mul.cu's modes from the shapes (`kernels.mul_mode`,
+counted as ``<wrapper>.<mode>``), and while spans are recorded each launch
+is the span ``launch.<wrapper>`` (`utils.metrics`).  The JAX route names map
+onto those modes:
 
   ======================================================  ===================
   JAX route (csgn_tpu/ops/dispatch.py `_path`)            CUDA mode

@@ -49,6 +49,9 @@ bit there and writes each row contiguously: 16-byte stores when batch % 4
 and the column path above it (one thread a column storing straight to
 global memory, ``"philox_column"``).  Both write the same words.
 
+Every CUDA body here is the span ``launch.<wrapper name>`` while spans are
+recorded (`utils.metrics`).
+
 `philox_streams` (K13) is the Philox stream itself, every row and no fix-up:
 the counterpart of the clone kernel of tools/enc_stats.py, which had to
 imitate K7's draws by hand; here it is K7's kernel with every row stored.
@@ -75,6 +78,7 @@ from csgn_tpu_torch._device import resolve_device
 from csgn_tpu_torch.ops._build import LAUNCHES, check, lib, ptr, stream_of
 from csgn_tpu_torch.ops.core import encrypt_bits_threefry_plain
 from csgn_tpu_torch.rng import threefry2x32
+from csgn_tpu_torch.utils.metrics import op_metrics
 
 __all__ = [
     "LAUNCHES",
@@ -255,23 +259,25 @@ def philox_path(w: int, batch: int) -> str:
 
 def _encrypt_cuda(name: str, entry: str, bits, key_idx, mask, valid_mask, col0: int,
                   engine_args: tuple, path: str | None = None):
-    w, d, batch = mask.shape[0], key_idx.shape[0], bits.shape[0]
-    out = torch.empty((w, batch), dtype=torch.int32, device=bits.device)
-    if batch:
-        bits32 = bits.to(torch.int32).contiguous()
-        extra = () if path is None else (_PHILOX_PATHS[path],)
-        with torch.cuda.device(bits.device):
-            check(name, getattr(lib(), entry)(
-                ptr(bits32), ptr(key_idx.contiguous()), ptr(mask.contiguous()),
-                ptr(valid_mask.contiguous()), ptr(out), w, d, batch, col0, *engine_args,
-                *extra, stream_of(bits),
-            ))
-        LAUNCHES[name] += 1
-        if path is not None:
-            LAUNCHES["philox_column" if path == "column" else "philox_tile"] += 1
-            if path == "tile_4byte":
-                LAUNCHES["philox_tile_4byte"] += 1
-    return out
+    """Launch csrc/encrypt.cu's `entry` under the span ``launch.<name>``."""
+    with op_metrics().span(f"launch.{name}"):
+        w, d, batch = mask.shape[0], key_idx.shape[0], bits.shape[0]
+        out = torch.empty((w, batch), dtype=torch.int32, device=bits.device)
+        if batch:
+            bits32 = bits.to(torch.int32).contiguous()
+            extra = () if path is None else (_PHILOX_PATHS[path],)
+            with torch.cuda.device(bits.device):
+                check(name, getattr(lib(), entry)(
+                    ptr(bits32), ptr(key_idx.contiguous()), ptr(mask.contiguous()),
+                    ptr(valid_mask.contiguous()), ptr(out), w, d, batch, col0, *engine_args,
+                    *extra, stream_of(bits),
+                ))
+            LAUNCHES[name] += 1
+            if path is not None:
+                LAUNCHES["philox_column" if path == "column" else "philox_tile"] += 1
+                if path == "tile_4byte":
+                    LAUNCHES["philox_tile_4byte"] += 1
+        return out
 
 
 def encrypt_bits_counter(seed: int, bits: torch.Tensor, key_idx: torch.Tensor,
@@ -369,11 +375,12 @@ def philox_streams(seed: int, batch: int, rows: int, device=None) -> torch.Tenso
         return philox_streams_plain(seed, batch, rows, device).to(torch.int32)
     if device.type != "cuda":
         raise ValueError(f"philox_streams: device must be cpu or cuda, got {device}")
-    out = torch.empty((rows, batch), dtype=torch.int32, device=device)
-    if out.numel():
-        seed_lo, seed_hi = _seed_halves(seed)
-        with torch.cuda.device(device):
-            check("philox_streams", lib().csgn_philox_streams(
-                ptr(out), rows, batch, seed_lo, seed_hi, stream_of(out)))
-        LAUNCHES["philox_streams"] += 1
-    return out
+    with op_metrics().span("launch.philox_streams"):
+        out = torch.empty((rows, batch), dtype=torch.int32, device=device)
+        if out.numel():
+            seed_lo, seed_hi = _seed_halves(seed)
+            with torch.cuda.device(device):
+                check("philox_streams", lib().csgn_philox_streams(
+                    ptr(out), rows, batch, seed_lo, seed_hi, stream_of(out)))
+            LAUNCHES["philox_streams"] += 1
+        return out

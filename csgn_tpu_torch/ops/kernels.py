@@ -33,8 +33,10 @@ threshold.  Counts come back as int64 device tensors and parities as
 to ``LAUNCHES[<wrapper name>]``, or to ``LAUNCHES[<wrapper name>_batched]``
 for batched words; the multiply's unaligned and tiled modes count under
 ``<wrapper name>_unaligned`` and ``<wrapper name>_tiled`` (``_batched``
-appended for batches), and each multiply launch also bumps
-``op_metrics()`` counter ``<wrapper name>.<mode>``.
+appended for batches), and each multiply launch also bumps the
+``op_metrics()`` counter ``<wrapper name>.<mode>``.  While spans are
+recorded (`utils.metrics`), each CUDA body, from the output's allocation
+to the count, is the span ``launch.<wrapper name>``.
 """
 
 from __future__ import annotations
@@ -153,27 +155,30 @@ def mul_mode(w: int, t1: int, t2: int, base_aligned: bool) -> str:
 
 def _mul_cuda(name: str, a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor | None,
               mode: str | None = None):
-    """Launch csrc/mul.cu in `mode` (default: `mul_mode`'s pick)."""
-    *lead, w, t1 = a.shape
-    t2 = b.shape[-1]
-    out = torch.empty((*lead, w, t1 * t2), dtype=torch.int32, device=a.device)
-    count = None if mask is None else torch.zeros(lead, dtype=torch.int64, device=a.device)
-    if out.numel():
-        if mode is None:
-            mode = mul_mode(w, t1, t2, out.data_ptr() % 16 == 0)
-        batch = lead[0] if lead else 1
-        ragged = mode in ("unaligned", "tiled")
-        scratch = None
-        if mask is not None and ragged:
-            scratch = torch.zeros((batch, 3), dtype=torch.int64, device=a.device)
-        with torch.cuda.device(a.device):
-            check(name, lib().csgn_mul(
-                ptr(a), ptr(b), ptr(mask), ptr(out), ptr(count), ptr(scratch), batch, w, t1, t2,
-                _MODE_CODES[mode], stream_of(a)
-            ))
-        LAUNCHES[_counted(f"{name}_{mode}" if ragged else name, a)] += grids(batch)
-        op_metrics().count(f"{name}.{mode}")
-    return out, count
+    """Launch csrc/mul.cu in `mode` (default: `mul_mode`'s pick), under the
+    span ``launch.<name>``."""
+    metrics = op_metrics()
+    with metrics.span(f"launch.{name}"):
+        *lead, w, t1 = a.shape
+        t2 = b.shape[-1]
+        out = torch.empty((*lead, w, t1 * t2), dtype=torch.int32, device=a.device)
+        count = None if mask is None else torch.zeros(lead, dtype=torch.int64, device=a.device)
+        if out.numel():
+            if mode is None:
+                mode = mul_mode(w, t1, t2, out.data_ptr() % 16 == 0)
+            batch = lead[0] if lead else 1
+            ragged = mode in ("unaligned", "tiled")
+            scratch = None
+            if mask is not None and ragged:
+                scratch = torch.zeros((batch, 3), dtype=torch.int64, device=a.device)
+            with torch.cuda.device(a.device):
+                check(name, lib().csgn_mul(
+                    ptr(a), ptr(b), ptr(mask), ptr(out), ptr(count), ptr(scratch), batch, w,
+                    t1, t2, _MODE_CODES[mode], stream_of(a)
+                ))
+            LAUNCHES[_counted(f"{name}_{mode}" if ragged else name, a)] += grids(batch)
+            metrics.count(f"{name}.{mode}")
+        return out, count
 
 
 def mul_chunks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -208,21 +213,22 @@ def mul_decrypt(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor, *,
 
 
 def _decrypt_cuda(name: str, words: torch.Tensor, mask: torch.Tensor, per_chunk: bool):
-    *lead, w, c = words.shape
-    if per_chunk:
-        out = torch.empty((*lead, c), dtype=torch.int32, device=words.device)
-    else:
-        out = torch.zeros(lead, dtype=torch.int64, device=words.device)
-    if words.numel():
-        vec = 4 if c % 4 == 0 and words.data_ptr() % 16 == 0 else 1
-        batch = lead[0] if lead else 1
-        with torch.cuda.device(words.device):
-            check(name, lib().csgn_decrypt(
-                ptr(words), ptr(mask), ptr(out), batch, w, c, int(per_chunk), vec,
-                stream_of(words)
-            ))
-        LAUNCHES[_counted(name, words)] += grids(batch)
-    return out
+    with op_metrics().span(f"launch.{name}"):
+        *lead, w, c = words.shape
+        if per_chunk:
+            out = torch.empty((*lead, c), dtype=torch.int32, device=words.device)
+        else:
+            out = torch.zeros(lead, dtype=torch.int64, device=words.device)
+        if words.numel():
+            vec = 4 if c % 4 == 0 and words.data_ptr() % 16 == 0 else 1
+            batch = lead[0] if lead else 1
+            with torch.cuda.device(words.device):
+                check(name, lib().csgn_decrypt(
+                    ptr(words), ptr(mask), ptr(out), batch, w, c, int(per_chunk), vec,
+                    stream_of(words)
+                ))
+            LAUNCHES[_counted(name, words)] += grids(batch)
+        return out
 
 
 def decrypt_parity(words: torch.Tensor, mask: torch.Tensor, *,
@@ -278,10 +284,11 @@ def fill_anchor(seed: int, t1: int, t2: int, w: int, device=None) -> torch.Tenso
         return fill_anchor_plain(seed, t1, t2, w, device)
     if device.type != "cuda":
         raise ValueError(f"fill_anchor: device must be cpu or cuda, got {device}")
-    out = torch.empty((w, t1 * t2), dtype=torch.int32, device=device)
-    if out.numel():
-        with torch.cuda.device(device):
-            check("fill_anchor", lib().csgn_fill_anchor(
-                ptr(out), int(seed) & 0xFFFFFFFF, w, t1 * t2, stream_of(out)))
-        LAUNCHES["fill_anchor"] += 1
-    return out
+    with op_metrics().span("launch.fill_anchor"):
+        out = torch.empty((w, t1 * t2), dtype=torch.int32, device=device)
+        if out.numel():
+            with torch.cuda.device(device):
+                check("fill_anchor", lib().csgn_fill_anchor(
+                    ptr(out), int(seed) & 0xFFFFFFFF, w, t1 * t2, stream_of(out)))
+            LAUNCHES["fill_anchor"] += 1
+        return out

@@ -48,6 +48,13 @@ _ENGINES = {"threefry": encrypt_bits_threefry, "counter": encrypt_bits_counter,
             "philox": encrypt_bits_philox}
 
 
+def _read_bit(parity: torch.Tensor) -> int:
+    """A parity read back to the host: the wait for the device and the copy
+    (span ``key.readback``)."""
+    with op_metrics().span("key.readback"):
+        return int(parity)
+
+
 def _engine_for(rng, engine: str | None) -> str:
     """The engine an encrypt's randomness selects: an `rng.Key` runs
     "threefry", an integer seed "counter" unless "philox" is asked for; an
@@ -177,7 +184,7 @@ class SecretKey:
             "key.decrypt", chunks_in=ciphertext.chunks,
             bytes_moved=self.ctx.chunk_count_bytes(ciphertext.physical_chunks),
         ):
-            return Plaintext(int(dispatch.decrypt_parity(ciphertext.wt, self._mask_t)))
+            return Plaintext(_read_bit(dispatch.decrypt_parity(ciphertext.wt, self._mask_t)))
 
     def decrypt_batch(self, words) -> torch.Tensor:
         """Decrypt a batch of ciphertexts -> bits int32[batch].
@@ -238,11 +245,11 @@ class SecretKey:
             if ct_mod._EAGER_ORDER:
                 a, b = c1.canonical(), c2.canonical()
                 out, parity = dispatch.mul_decrypt(a.wt, b.wt, self._mask_t)
-                return Ciphertext(out, self.ctx), Plaintext(int(parity))
+                return Ciphertext(out, self.ctx), Plaintext(_read_bit(parity))
             out, jmajor, zp_a, zp_b, parity = dispatch.mul_decrypt_auto(c1.wt, c2.wt,
                                                                         self._mask_t)
             tag = product_tag(c1, c2, out, jmajor, zp_a, zp_b)
-            return Ciphertext(out, self.ctx, *tag), Plaintext(int(parity))
+            return Ciphertext(out, self.ctx, *tag), Plaintext(_read_bit(parity))
 
     def mul_and_decrypt_batch(self, cb1: CiphertextBatch, cb2: CiphertextBatch):
         """Batched fused multiply + decrypt: ``(cb1 * cb2, bits int32[B])`` —

@@ -23,6 +23,10 @@ Semantics:
   * A request that fails validation at flush fails only its own future.
   * Single-threaded by design — the batching win is launch amortization,
     not host concurrency.  Wrap calls in a lock if driving from many threads.
+  * While `utils.metrics` records spans, a submission is ``executor.submit``
+    and a flush ``executor.flush``; each group under it is ``serve.<kind>``,
+    over ``executor.stack``, the batched op, ``executor.readback`` and
+    ``executor.unpack`` (the requests' wrappers and their futures).
 
 Example::
 
@@ -34,7 +38,7 @@ Example::
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
@@ -178,36 +182,45 @@ class BatchExecutor:
         if self._key is not None and ct.ctx != self._key.ctx:
             raise ValueError(f"{what}: ciphertext context differs from the key's")
 
+    def _submitting(self):
+        """The span of one submission, its id the request's number."""
+        return op_metrics().span("executor.submit", self.stats["requests"])
+
     def submit_encrypt(self, bit: int) -> ServeFuture:
         """Encrypt one bit; B queued encrypts become one `encrypt_batch`."""
-        self._need_key("encrypt")
-        return self._enqueue(("enc",), (int(bit) & 1,))
+        with self._submitting():
+            self._need_key("encrypt")
+            return self._enqueue(("enc",), (int(bit) & 1,))
 
     def submit_add(self, a: Ciphertext, b: Ciphertext) -> ServeFuture:
-        self._check_ct(a, "add"), self._check_ct(b, "add")
-        if a.ctx != b.ctx:
-            raise ValueError("add: operand context mismatch")
-        return self._enqueue(("add", a.ctx, a.chunks, b.chunks), (a, b))
+        with self._submitting():
+            self._check_ct(a, "add"), self._check_ct(b, "add")
+            if a.ctx != b.ctx:
+                raise ValueError("add: operand context mismatch")
+            return self._enqueue(("add", a.ctx, a.chunks, b.chunks), (a, b))
 
     def submit_mul(self, a: Ciphertext, b: Ciphertext) -> ServeFuture:
-        self._check_ct(a, "mul"), self._check_ct(b, "mul")
-        if a.ctx != b.ctx:
-            raise ValueError("mul: operand context mismatch")
-        return self._enqueue(("mul", a.ctx, a.chunks, b.chunks), (a, b))
+        with self._submitting():
+            self._check_ct(a, "mul"), self._check_ct(b, "mul")
+            if a.ctx != b.ctx:
+                raise ValueError("mul: operand context mismatch")
+            return self._enqueue(("mul", a.ctx, a.chunks, b.chunks), (a, b))
 
     def submit_decrypt(self, ct: Ciphertext) -> ServeFuture:
         """Decrypt; resolves to an int bit."""
-        self._need_key("decrypt")
-        self._check_ct(ct, "decrypt")
-        return self._enqueue(("dec", ct.ctx, ct.chunks), (ct,))
+        with self._submitting():
+            self._need_key("decrypt")
+            self._check_ct(ct, "decrypt")
+            return self._enqueue(("dec", ct.ctx, ct.chunks), (ct,))
 
     def submit_mul_decrypt(self, a: Ciphertext, b: Ciphertext) -> ServeFuture:
         """Fused multiply+decrypt; resolves to ``(product, bit)``."""
-        self._need_key("mul_decrypt")
-        self._check_ct(a, "mul_decrypt"), self._check_ct(b, "mul_decrypt")
-        if a.ctx != b.ctx:
-            raise ValueError("mul_decrypt: operand context mismatch")
-        return self._enqueue(("muldec", a.ctx, a.chunks, b.chunks), (a, b))
+        with self._submitting():
+            self._need_key("mul_decrypt")
+            self._check_ct(a, "mul_decrypt"), self._check_ct(b, "mul_decrypt")
+            if a.ctx != b.ctx:
+                raise ValueError("mul_decrypt: operand context mismatch")
+            return self._enqueue(("muldec", a.ctx, a.chunks, b.chunks), (a, b))
 
     def submit_netlist(self, netlist: Netlist, inputs) -> ServeFuture:
         """Evaluate a Bristol netlist over one request's encrypted inputs;
@@ -224,15 +237,16 @@ class BatchExecutor:
 
     def _submit_netlist_common(self, kind: str, label: str, netlist, inputs) -> ServeFuture:
         """Shared validation + enqueue for both netlist routes."""
-        self._need_key(label)
-        if not isinstance(netlist, Netlist):
-            raise TypeError(f"expected Netlist, got {type(netlist).__name__}")
-        inputs = tuple(tuple(v) for v in inputs)
-        flat = _flatten_inputs(netlist, inputs)
-        for ct in flat:
-            self._check_ct(ct, label)
-        shapes = tuple(ct.chunks for ct in flat)
-        return self._enqueue((kind, netlist, self._key.ctx, shapes), (netlist, inputs))
+        with self._submitting():
+            self._need_key(label)
+            if not isinstance(netlist, Netlist):
+                raise TypeError(f"expected Netlist, got {type(netlist).__name__}")
+            inputs = tuple(tuple(v) for v in inputs)
+            flat = _flatten_inputs(netlist, inputs)
+            for ct in flat:
+                self._check_ct(ct, label)
+            shapes = tuple(ct.chunks for ct in flat)
+            return self._enqueue((kind, netlist, self._key.ctx, shapes), (netlist, inputs))
 
     def submit_netlist_expr(self, netlist: Netlist, inputs) -> ServeFuture:
         """Evaluate a netlist growth-free and decrypt its outputs; resolves
@@ -258,25 +272,27 @@ class BatchExecutor:
         with a leaf under another context fails its own future at flush,
         and the rest of its group still resolves.
         """
-        sk = self._need_key("decrypt_circuit")
-        if isinstance(expr, Ciphertext):
-            self._check_ct(expr, "decrypt_circuit")
-        elif isinstance(expr, CtExpr):
-            if expr._any_leaf().ctx != sk.ctx:
-                raise ValueError("decrypt_circuit: leaf context differs from the key's")
-        else:
-            raise TypeError(
-                f"decrypt_circuit expects CtExpr or Ciphertext, got {type(expr).__name__}"
-            )
-        return self._enqueue(("deccirc", sk.ctx), (expr,))
+        with self._submitting():
+            sk = self._need_key("decrypt_circuit")
+            if isinstance(expr, Ciphertext):
+                self._check_ct(expr, "decrypt_circuit")
+            elif isinstance(expr, CtExpr):
+                if expr._any_leaf().ctx != sk.ctx:
+                    raise ValueError("decrypt_circuit: leaf context differs from the key's")
+            else:
+                raise TypeError(
+                    f"decrypt_circuit expects CtExpr or Ciphertext, got {type(expr).__name__}"
+                )
+            return self._enqueue(("deccirc", sk.ctx), (expr,))
 
     def submit_permute(self, ct: Ciphertext, perm: Permutation) -> ServeFuture:
         """Apply a per-request permutation; B requests run the batched
         stacked-plan Beneš kernel (one launch for the whole fleet)."""
-        self._check_ct(ct, "permute")
-        if perm.n != ct.ctx.n:
-            raise ValueError(f"permutation length {perm.n} != context n {ct.ctx.n}")
-        return self._enqueue(("perm", ct.ctx, ct.chunks), (ct, perm))
+        with self._submitting():
+            self._check_ct(ct, "permute")
+            if perm.n != ct.ctx.n:
+                raise ValueError(f"permutation length {perm.n} != context n {ct.ctx.n}")
+            return self._enqueue(("perm", ct.ctx, ct.chunks), (ct, perm))
 
     # -- execution ----------------------------------------------------------------
 
@@ -287,9 +303,10 @@ class BatchExecutor:
         """Execute every pending group (one batched call per group)."""
         if not self._groups:
             return
-        self.stats["flushes"] += 1
-        for group_key in list(self._groups):
-            self._flush_group(group_key)
+        with op_metrics().span("executor.flush", self.stats["flushes"]):
+            self.stats["flushes"] += 1
+            for group_key in list(self._groups):
+                self._flush_group(group_key)
 
     def _flush_group(self, group_key: tuple) -> None:
         pending = self._groups.pop(group_key, [])
@@ -299,57 +316,73 @@ class BatchExecutor:
         futures = [f for _, f in pending]
         self.stats["group_dispatches"] += 1
         runner: Callable = getattr(self, f"_run_{group_key[0]}")
-        try:
-            with op_metrics().record(f"serve.{group_key[0]}", chunks_in=len(pending)):
+        metrics = op_metrics()
+        with metrics.record(f"serve.{group_key[0]}", chunks_in=len(pending)):
+            try:
                 results = runner(payloads)
-        except Exception as exc:  # noqa: BLE001 — delivered via the futures
-            for f in futures:
-                f._set_exception(exc)
-            return
-        for f, r in zip(futures, results):
-            if isinstance(r, _Failed):
-                f._set_exception(r.exc)
-            else:
-                f._set(r)
+                with metrics.span("executor.unpack"):
+                    for f, r in zip(futures, results):
+                        if isinstance(r, _Failed):
+                            f._set_exception(r.exc)
+                        else:
+                            f._set(r)
+            except Exception as exc:  # noqa: BLE001 — delivered via the futures
+                for f in futures:
+                    if not f.done:
+                        f._set_exception(exc)
 
-    # Per-kind batched runners: each is ONE batched device computation.
+    # Per-kind batched runners: each is ONE batched device computation, and
+    # returns the requests' results in order, lazily where each is a wrapper
+    # (so that `_flush_group` makes them under "executor.unpack").
 
-    def _run_enc(self, payloads: list[tuple]) -> list[Ciphertext]:
+    @staticmethod
+    def _stacked(payloads: list[tuple], operands: int) -> list[CiphertextBatch]:
+        """The payloads' first `operands` fields, each stacked across the group."""
+        with op_metrics().span("executor.stack"):
+            return [_stack([p[j] for p in payloads]) for j in range(operands)]
+
+    def _run_enc(self, payloads: list[tuple]) -> Iterator[Ciphertext]:
         sk = self._need_key("encrypt")
         bits = torch.tensor([p[0] for p in payloads], dtype=torch.int32)
         subkey = fold_in(self._rng, self._enc_flushes)
         self._enc_flushes += 1
         batch = CiphertextBatch.from_fresh(sk.encrypt_batch(bits, subkey), sk.ctx)  # [W, B]
-        return [batch[i] for i in range(len(payloads))]
+        return (batch[i] for i in range(len(payloads)))
 
-    def _run_add(self, payloads: list[tuple]) -> list[Ciphertext]:
-        out = _stack([a for a, _ in payloads]) + _stack([b for _, b in payloads])
-        return [out[i] for i in range(len(payloads))]
+    def _run_add(self, payloads: list[tuple]) -> Iterator[Ciphertext]:
+        a, b = self._stacked(payloads, 2)
+        out = a + b
+        return (out[i] for i in range(len(payloads)))
 
-    def _run_mul(self, payloads: list[tuple]) -> list[Ciphertext]:
-        out = _stack([a for a, _ in payloads]) * _stack([b for _, b in payloads])
-        return [out[i] for i in range(len(payloads))]
+    def _run_mul(self, payloads: list[tuple]) -> Iterator[Ciphertext]:
+        a, b = self._stacked(payloads, 2)
+        out = a * b
+        return (out[i] for i in range(len(payloads)))
 
     def _run_dec(self, payloads: list[tuple]) -> list[int]:
         sk = self._need_key("decrypt")
-        return sk.decrypt_batch(_stack([p[0] for p in payloads])).tolist()
+        bits = sk.decrypt_batch(*self._stacked(payloads, 1))
+        with op_metrics().span("executor.readback"):
+            return bits.tolist()
 
-    def _run_muldec(self, payloads: list[tuple]) -> list[tuple[Ciphertext, int]]:
+    def _run_muldec(self, payloads: list[tuple]) -> Iterator[tuple[Ciphertext, int]]:
         sk = self._need_key("mul_decrypt")
-        out, bits = sk.mul_and_decrypt_batch(_stack([a for a, _ in payloads]),
-                                             _stack([b for _, b in payloads]))
-        return [(out[i], bit) for i, bit in enumerate(bits.tolist())]
+        out, bits = sk.mul_and_decrypt_batch(*self._stacked(payloads, 2))
+        with op_metrics().span("executor.readback"):
+            bits = bits.tolist()
+        return ((out[i], bit) for i, bit in enumerate(bits))
 
     @staticmethod
     def _stack_wires(payloads: list[tuple]) -> list[list[CiphertextBatch]]:
         """Stack each input wire across the group's requests (both netlist
         runners share this shape)."""
-        return [
-            [_stack([p[1][v][j] for p in payloads]) for j in range(len(payloads[0][1][v]))]
-            for v in range(len(payloads[0][1]))
-        ]
+        with op_metrics().span("executor.stack"):
+            return [
+                [_stack([p[1][v][j] for p in payloads]) for j in range(len(payloads[0][1][v]))]
+                for v in range(len(payloads[0][1]))
+            ]
 
-    def _run_net(self, payloads: list[tuple]) -> list[list[list[Ciphertext]]]:
+    def _run_net(self, payloads: list[tuple]) -> Iterator[list[list[Ciphertext]]]:
         sk = self._need_key("netlist")
         netlist = payloads[0][0]  # the group key pins one netlist per group
         one = sk.encrypt(1, fold_in(fold_in(self._rng, NETLIST_STREAM), self._net_flushes))
@@ -358,10 +391,10 @@ class BatchExecutor:
         # them before the first superlinear multiply allocates.
         out_batches = eval_homomorphic_batch(netlist, self._stack_wires(payloads), one,
                                              budget_bytes=self._netlist_budget)
-        return [[[cb[i] for cb in value] for value in out_batches]
-                for i in range(len(payloads))]
+        return ([[cb[i] for cb in value] for value in out_batches]
+                for i in range(len(payloads)))
 
-    def _run_netexpr(self, payloads: list[tuple]) -> list[list[list[int]]]:
+    def _run_netexpr(self, payloads: list[tuple]) -> Iterator[list[list[int]]]:
         """Key-side fleet readout: decrypting a netlist's expr DAG folds to
         plain evaluation over the decrypted input bits (Dec is a ring
         homomorphism), so this route skips building the DAG — decrypt every
@@ -376,7 +409,7 @@ class BatchExecutor:
         packed_inputs = [[next(it) for _ in value] for value in stacked]
         outs = eval_plain_packed(netlist, packed_inputs, b)
         out_vecs = [[unpack_fleet_bits(v, b) for v in value] for value in outs]
-        return [[[int(vec[i]) for vec in value] for value in out_vecs] for i in range(b)]
+        return ([[int(vec[i]) for vec in value] for value in out_vecs] for i in range(b))
 
     def _run_deccirc(self, payloads: list[tuple]) -> list:
         sk = self._need_key("decrypt_circuit")
@@ -401,10 +434,10 @@ class BatchExecutor:
                 out.append(v if isinstance(v, np.ndarray) else int(v))
         return out
 
-    def _run_perm(self, payloads: list[tuple]) -> list[Ciphertext]:
-        out = _stack([ct for ct, _ in payloads]).apply_permutations(
-            [perm for _, perm in payloads])
-        return [out[i] for i in range(len(payloads))]
+    def _run_perm(self, payloads: list[tuple]) -> Iterator[Ciphertext]:
+        (cts,) = self._stacked(payloads, 1)
+        out = cts.apply_permutations([perm for _, perm in payloads])
+        return (out[i] for i in range(len(payloads)))
 
     def __repr__(self) -> str:
         return (

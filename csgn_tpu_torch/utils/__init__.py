@@ -1,5 +1,5 @@
-"""Utilities: per-op metrics and profiler ranges."""
+"""Utilities: per-op counts and host spans."""
 
-from csgn_tpu_torch.utils.metrics import OpMetrics, op_metrics, trace
+from csgn_tpu_torch.utils.metrics import OpMetrics, op_metrics
 
-__all__ = ["OpMetrics", "op_metrics", "trace"]
+__all__ = ["OpMetrics", "op_metrics"]
