@@ -16,8 +16,8 @@ Phases, each printing lines tagged [device] / [build] / [check] / [main] /
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build: the CUDA kernels from csgn_tpu_torch/csrc, with the seconds taken,
      and ptxas's registers and spill bytes of every Beneš, fill, Philox
-     tile and K14 kernel (a spill there fails the run) and of any other
-     kernel that spills;
+     tile and K14 kernel and of the fused count's column-match pass (a
+     spill there fails the run) and of any other kernel that spills;
   3. each kernel against its plain torch version on the card, bit-exact, at
      small and ragged shapes and at the main path's full size: K1-K4, the
      Beneš kernels K8/K9/K12 at n in {20, 100, 1247, 2049, 4095, 8191,
@@ -288,15 +288,17 @@ KERNELS = [
 ]
 # The kernels each path must launch (LAUNCHES keys; "_batched" = the same
 # kernel on [B, W, C] operands, reported in its kernel's row).
-MAIN_PATH = ("mul_chunks", "mul_decrypt", "decrypt_parity", "chunk_matches",
+MAIN_PATH = ("mul_chunks", "mul_decrypt", "mul_count", "decrypt_parity", "chunk_matches",
              "encrypt_bits_threefry", "encrypt_bits_counter")
 ROTATION_PATH = ("apply_benes", "apply_benes_batch", "apply_benes_decrypt", "decrypt_parity",
-                 "mul_chunks_batched", "mul_decrypt_batched", "decrypt_parity_batched",
+                 "mul_chunks_batched", "mul_decrypt_batched", "mul_count_batched",
+                 "decrypt_parity_batched",
                  "encrypt_bits_counter")
 CIRCUIT_PATH = ("mul_chunks_unaligned", "mul_decrypt_unaligned", "mul_chunks_tiled",
                 "mul_decrypt_tiled", "mul_chunks_unaligned_batched",
-                "mul_decrypt_unaligned_batched", "decrypt_parity_batched",
-                "encrypt_bits_counter", "encrypt_bits_threefry", "apply_benes_batch")
+                "mul_decrypt_unaligned_batched", "mul_count", "mul_count_batched",
+                "decrypt_parity_batched", "encrypt_bits_counter", "encrypt_bits_threefry",
+                "apply_benes_batch")
 ENTRY_PATH = ("encrypt_bits_threefry", "encrypt_bits_counter", "encrypt_bits_philox", "philox_tile", "philox_streams",
               "fill_anchor", "mul_chunks", "mul_decrypt", "mul_chunks_unaligned", "decrypt_parity",
               "chunk_matches", "apply_benes")
@@ -2401,10 +2403,12 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     resources = _build.kernel_resources()
     watched = [r for r in resources if any(
-        k in r["kernel"] for k in ("benes_", "fill_kernel", "philox_tile_kernel", "JaxThreefry"))]
-    require(len(watched) == 34, f"ptxas reported {len(watched)} Beneš, fill, Philox tile and "
-            "K14 kernels, not 14 register + 10 lane-group + 6 wide + 1 fill + 2 tile + 1 K14")
-    for r in resources:  # every Beneš, fill, Philox tile and K14 kernel, and any other that spills
+        k in r["kernel"] for k in ("benes_", "fill_kernel", "philox_tile_kernel", "JaxThreefry",
+                                   "match_count_kernel"))]
+    require(len(watched) == 35, f"ptxas reported {len(watched)} Beneš, fill, Philox tile, "
+            "K14 and count-pass kernels, not 14 register + 10 lane-group + 6 wide + 1 fill + "
+            "2 tile + 1 K14 + 1 pass")
+    for r in resources:  # every watched kernel, and any other that spills
         spills = r["spill_stores"] or r["spill_loads"]
         if r in watched or spills:
             print(f"[build] {r['kernel']}: {r['registers']} registers, spill stores "

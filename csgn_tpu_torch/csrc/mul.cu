@@ -1,18 +1,25 @@
-// The chunk cross-product AND, optionally fused with the decrypt count, in
+// The chunk cross-product AND, optionally followed by the decrypt count, in
 // three modes that share one contract:
 //
 //   out[w, i*t2 + j] = a[w, i] & b[w, j]          (word-major [W, C], C = t1*t2)
 //   count            = #{(i, j) : (a_i & b_j & m) == m on every word}
 //
-//   * aligned (K1 / K2): rows start on 16-byte boundaries (C % 4 == 0).
-//     Replaces csgn_tpu/ops/kernels.py:mul_chunks_pallas (K1) and
-//     :mul_decrypt_pallas (K2, `kCount`).
-//   * unaligned (K10, K11a, K11b): any C.  Replaces :mul_chunks_pallas_grouped
-//     (K10), :mul_chunks_pallas_tiled_ragged (K11a) and
-//     :mul_decrypt_pallas_tiled_ragged (K11b), which exist for Mosaic's
-//     128-lane alignment; here the product has no pad chunks.
-//   * b-streamed (K6a, K6b): b beyond L2.  Replaces :mul_chunks_pallas_tiled
-//     (K6a) and :mul_decrypt_pallas_tiled (K6b).
+//   * aligned (K1): rows start on 16-byte boundaries (C % 4 == 0).
+//     Replaces csgn_tpu/ops/kernels.py:mul_chunks_pallas (K1).
+//   * unaligned (K10, K11a): any C.  Replaces :mul_chunks_pallas_grouped
+//     (K10) and :mul_chunks_pallas_tiled_ragged (K11a), which exist for
+//     Mosaic's 128-lane alignment; here the product has no pad chunks.
+//   * b-streamed (K6a): b beyond L2.  Replaces :mul_chunks_pallas_tiled (K6a).
+//
+// The fused forms (:mul_decrypt_pallas K2, :mul_decrypt_pallas_tiled K6b,
+// :mul_decrypt_pallas_tiled_ragged K11b) are the mode's product kernel above
+// followed, on the same stream, by the column-match pass (match_count_kernel).
+// A product column (i, j) matches iff a's column i and b's column j both
+// match (the identity kernels.py:140-154 and 530-543 strength-reduce to), so
+// count = (#matching a-columns) * (#matching b-columns), exact, written (not
+// accumulated) per element.  The pass reads only the rows of the mask's
+// nonzero words of a and b, t1 + t2 columns: 0.4 MB at 4096 x 4096 against
+// the product's 2.7 GB, and the product kernels carry no count at all.
 //
 // Batched operands [B, W, t] (the JAX package vmaps the same kernels,
 // csgn_tpu/ops/dispatch.py:354, 438) take element e from blockIdx.y, with
@@ -20,7 +27,7 @@
 // The host launches one grid per 65535 elements.  Only the `kBatched`
 // instantiations apply the element offset: a 2-D call (or B = 1) runs the
 // 2-D kernel's exact code, because on an H100 the offset alone slowed the
-// 2-D K1 by 6 % and K2 by 13 %.
+// 2-D K1 by 6 %.
 //
 // Bound on the H100: the product write.  W*t1*t2*4 bytes leave the SM once and
 // are never re-read; a and b are read from L1/L2.  Design of the aligned mode:
@@ -29,13 +36,7 @@
 //     per row (kVec = 4: one 16-byte store per thread);
 //   * (i, j) is derived once per thread (one 64-bit division), then reused
 //     for the W rows; all offsets are 64-bit (W*t1*t2 passes 2^31 at
-//     8192 x 8192);
-//   * the count is strength-reduced as in kernels.py:140-154: a product
-//     column matches iff its a-column and its b-column both match, so each
-//     thread ANDs the a- and b-match bits over the mask's nonzero words only,
-//     then a warp sum and one 64-bit atomicAdd per warp that found a match
-//     (integer atomics are exact in any order; random chunks almost never
-//     match, so the atomic is rare).  The product is never re-read.
+//     8192 x 8192).
 //
 // Unaligned mode: when C % 4 != 0, row r starts at word r*C, so a fixed
 // column-to-thread map leaves three rows in four off the 16-byte grid.  Each
@@ -56,13 +57,6 @@
 // swept from L2 across all t1 a-columns (K6's grid (t2 // bt, t1),
 // kernels.py:264, 405).  The stores are the unaligned mode's, so a large
 // unaligned b takes both.
-//
-// The count of these two modes no longer walks whole product columns.  It is
-// (#matching a-columns) * (#matching b-columns) per element (exact; the
-// identity kernels.py:140-154 and 530-543 strength-reduce to): the element's
-// threads test a's t1 and b's t2 columns over the mask's nonzero words, add
-// the two sums into scratch[e] with atomics, and the element's last block to
-// finish (a ticket in scratch[e]) writes count[e] = na * nb.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -73,37 +67,27 @@ constexpr int kThreads = 256;
 constexpr int64_t kMaxGridY = 65535;
 constexpr int64_t kTile = 4 * kThreads - 4;
 
-template <bool kCount, int kVec, bool kBatched>
+template <int kVec, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-           const uint32_t* __restrict__ mask, uint32_t* __restrict__ out,
-           unsigned long long* __restrict__ count, int64_t w, int64_t t1,
-           int64_t t2) {
+           uint32_t* __restrict__ out, int64_t w, int64_t t1, int64_t t2) {
   if (kBatched) {
     const int64_t e = blockIdx.y;
     a += e * w * t1;
     b += e * w * t2;
     out += e * w * t1 * t2;
-    if (kCount) count += e;
-  }
-  extern __shared__ uint32_t sm_mask[];
-  if (kCount) {
-    for (int64_t r = threadIdx.x; r < w; r += blockDim.x) sm_mask[r] = mask[r];
-    __syncthreads();
   }
   const int64_t c = t1 * t2;
   const int64_t col0 = (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * kVec;
-  const bool active = col0 < c;  // inactive lanes stay for the warp sum
+  const bool active = col0 < c;
 
   int64_t ai[kVec], bj[kVec];
-  bool ma[kVec], mb[kVec];
   if (active) {
     int64_t i = col0 / t2, j = col0 - i * t2;
 #pragma unroll
     for (int k = 0; k < kVec; ++k) {
       ai[k] = i;
       bj[k] = j;
-      ma[k] = mb[k] = true;
       if (++j == t2) { j = 0; ++i; }
     }
     for (int64_t r = 0; r < w; ++r) {
@@ -111,17 +95,7 @@ mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
       const uint32_t* brow = b + r * t2;
       uint32_t v[kVec];
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        const uint32_t x = arow[ai[k]], y = brow[bj[k]];
-        v[k] = x & y;
-        if (kCount) {
-          const uint32_t m = sm_mask[r];
-          if (m) {  // uniform across the block: the mask is shared
-            ma[k] &= (x & m) == m;
-            mb[k] &= (y & m) == m;
-          }
-        }
-      }
+      for (int k = 0; k < kVec; ++k) v[k] = arow[ai[k]] & brow[bj[k]];
       uint32_t* orow = out + r * c + col0;
       if (kVec == 4) {
         *reinterpret_cast<uint4*>(orow) = make_uint4(v[0], v[1], v[2], v[3]);
@@ -131,54 +105,21 @@ mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
       }
     }
   }
-  if (kCount) {
-    unsigned n = 0;
-    if (active) {
-#pragma unroll
-      for (int k = 0; k < kVec; ++k) n += (ma[k] && mb[k]) ? 1u : 0u;
-    }
-    n = __reduce_add_sync(0xffffffffu, n);
-    if ((threadIdx.x & 31) == 0 && n) atomicAdd(count, static_cast<unsigned long long>(n));
-  }
-}
-
-// 1 if column k of x [w, t] matches the mask on every nonzero mask word.
-__device__ __forceinline__ unsigned column_matches(const uint32_t* __restrict__ x, int64_t t,
-                                                   int64_t k, const uint32_t* sm_mask,
-                                                   int64_t w) {
-  bool ok = true;
-  for (int64_t r = 0; r < w; ++r) {
-    const uint32_t m = sm_mask[r];
-    if (m) ok &= (x[r * t + k] & m) == m;
-  }
-  return ok ? 1u : 0u;
 }
 
 // The launch bound of six blocks per SM caps the kernel at 40 registers, as
 // the aligned K1 has (at 64 registers only four blocks fit, and the same
 // stores ran 10-19 % slower on an H100).  Column indices are 32-bit
 // (t1, t2 < 2^32).
-template <bool kCount, bool kStreamB, bool kBatched>
+template <bool kStreamB, bool kBatched>
 __global__ void __launch_bounds__(kThreads, 6)
 mul_ragged_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
-                  const uint32_t* __restrict__ mask, uint32_t* __restrict__ out,
-                  unsigned long long* __restrict__ count,
-                  unsigned long long* __restrict__ scratch, int64_t w, int64_t t1,
-                  int64_t t2) {
+                  uint32_t* __restrict__ out, int64_t w, int64_t t1, int64_t t2) {
   if (kBatched) {
     const int64_t e = blockIdx.y;
     a += e * w * t1;
     b += e * w * t2;
     out += e * w * t1 * t2;
-    if (kCount) {
-      count += e;
-      scratch += 3 * e;
-    }
-  }
-  extern __shared__ uint32_t sm_mask[];
-  if (kCount) {
-    for (int64_t r = threadIdx.x; r < w; r += blockDim.x) sm_mask[r] = mask[r];
-    __syncthreads();
   }
   const int64_t c = t1 * t2;
   int64_t cs, ce, i_blk = 0;  // this block's product columns [cs, ce)
@@ -241,102 +182,192 @@ mul_ragged_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b
       }
     }
   }
+}
 
-  if (kCount) {
-    const int64_t nthreads = static_cast<int64_t>(gridDim.x) * blockDim.x;
-    const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    unsigned na = 0, nb = 0;
-    for (int64_t k = g; k < t1; k += nthreads) na += column_matches(a, t1, k, sm_mask, w);
-    for (int64_t k = g; k < t2; k += nthreads) nb += column_matches(b, t2, k, sm_mask, w);
-    na = __reduce_add_sync(0xffffffffu, na);
-    nb = __reduce_add_sync(0xffffffffu, nb);
-    if ((threadIdx.x & 31) == 0) {
-      if (na) atomicAdd(scratch, static_cast<unsigned long long>(na));
-      if (nb) atomicAdd(scratch + 1, static_cast<unsigned long long>(nb));
-      __threadfence();
+// The count of a fused call: count[e] = na * nb, where na of a's t1 columns
+// and nb of b's t2 columns match the mask on every nonzero mask word.  Below
+// a few MB of operand rows the pass takes as long as its chain of dependent
+// memory round trips, so it keeps the chain short.  A block first lists the
+// rows of the mask's nonzero words in shared memory (in any order: an AND
+// does not care), then sweeps the element's t1 + t2 columns (a's, then b's),
+// kCountCols a thread kCountThreads apart so that a warp's loads of one row
+// are contiguous, and kCountSpan a block a sweep; for each column it loads
+// kCountRows of the listed rows, and their mask words, at once, and stops
+// once the column fails.  At most kCountMaxBlocks blocks an element (three
+// blocks at 80 registers a thread fit on each of the H100's 132 SMs), so a
+// long element takes several sweeps rather than several waves of blocks,
+// shared evenly.  With one block an element, the block writes count[e]; with
+// more, each block adds (na << 32 | nb) into scratch[e][0] (zeroed by the
+// host; t1, t2 < 2^32) and the element's last block to finish (a ticket in
+// scratch[e][1]) writes count[e].
+constexpr int kCountThreads = 256;
+constexpr int kCountCols = 2;
+constexpr int kCountRows = 16;
+constexpr int64_t kCountSpan = kCountThreads * kCountCols;
+constexpr int64_t kCountMaxBlocks = 3 * 132;
+
+__global__ void __launch_bounds__(kCountThreads)
+match_count_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                   const uint32_t* __restrict__ mask, unsigned long long* __restrict__ count,
+                   unsigned long long* __restrict__ scratch, int64_t w, int64_t t1,
+                   int64_t t2) {
+  extern __shared__ uint32_t rows[];  // [w]: the rows of the mask's nonzero words
+  __shared__ unsigned nnz, sums[kCountThreads / 32][2];
+  const int64_t e = blockIdx.y;
+  a += e * w * t1;
+  b += e * w * t2;
+  if (threadIdx.x == 0) nnz = 0;
+  __syncthreads();
+  for (int64_t r = threadIdx.x; r < w; r += kCountThreads) {
+    if (mask[r]) rows[atomicAdd(&nnz, 1u)] = static_cast<uint32_t>(r);
+  }
+  __syncthreads();
+  const unsigned n = nnz;
+  unsigned na = 0, nb = 0;
+  for (int64_t k0 = blockIdx.x * kCountSpan + threadIdx.x; k0 < t1 + t2;
+       k0 += gridDim.x * kCountSpan) {
+    const uint32_t* col[kCountCols];
+    int64_t stride[kCountCols];
+    unsigned live = 0, in_a = 0;  // bit q: column q still matching; column q is a's
+#pragma unroll
+    for (int q = 0; q < kCountCols; ++q) {
+      const int64_t k = k0 + q * kCountThreads;
+      const bool of_a = k < t1;
+      col[q] = of_a ? a + k : b + (k - t1);
+      stride[q] = of_a ? t1 : t2;
+      live |= (k < t1 + t2 ? 1u : 0u) << q;
+      in_a |= (of_a ? 1u : 0u) << q;
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      const unsigned long long ticket = atomicAdd(scratch + 2, 1ull);
-      if (ticket == gridDim.x - 1) {  // every block of the element has added
-        __threadfence();
-        *count = atomicAdd(scratch, 0ull) * atomicAdd(scratch + 1, 0ull);
+    for (unsigned j0 = 0; j0 < n && live; j0 += kCountRows) {
+      uint32_t mw[kCountRows], x[kCountRows][kCountCols];
+#pragma unroll
+      for (int u = 0; u < kCountRows; ++u) {
+        const bool in = j0 + u < n;
+        const int64_t row = in ? rows[j0 + u] : 0;
+        mw[u] = in ? mask[row] : 0u;
+#pragma unroll
+        for (int q = 0; q < kCountCols; ++q) {
+          x[u][q] = in && (live >> q & 1u) ? col[q][row * stride[q]] : 0u;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kCountRows; ++u) {
+#pragma unroll
+        for (int q = 0; q < kCountCols; ++q) {
+          if ((x[u][q] & mw[u]) != mw[u]) live &= ~(1u << q);
+        }
       }
     }
+    na += __popc(live & in_a);
+    nb += __popc(live & ~in_a);
+  }
+  na = __reduce_add_sync(0xffffffffu, na);
+  nb = __reduce_add_sync(0xffffffffu, nb);
+  if ((threadIdx.x & 31) == 0) {
+    sums[threadIdx.x / 32][0] = na;
+    sums[threadIdx.x / 32][1] = nb;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  unsigned long long sa = 0, sb = 0;
+#pragma unroll
+  for (int k = 0; k < kCountThreads / 32; ++k) {
+    sa += sums[k][0];
+    sb += sums[k][1];
+  }
+  if (gridDim.x == 1) {
+    count[e] = sa * sb;
+    return;
+  }
+  scratch += 2 * e;
+  if (sa | sb) atomicAdd(scratch, sa << 32 | sb);
+  __threadfence();
+  if (atomicAdd(scratch + 1, 1ull) == gridDim.x - 1) {  // every block of the element has added
+    __threadfence();
+    const unsigned long long v = atomicAdd(scratch, 0ull);
+    count[e] = (v >> 32) * (v & 0xffffffffull);
   }
 }
 
-template <bool kCount, int kVec>
-cudaError_t launch(const void* a, const void* b, const void* mask, void* out,
-                   void* count, int64_t batch, int64_t w, int64_t t1, int64_t t2,
-                   cudaStream_t stream) {
+template <int kVec>
+cudaError_t launch(const void* a, const void* b, void* out, int64_t batch, int64_t w,
+                   int64_t t1, int64_t t2, cudaStream_t stream) {
   const int64_t threads = (t1 * t2 + kVec - 1) / kVec;
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  const size_t smem = kCount ? static_cast<size_t>(w) * sizeof(uint32_t) : 0;
   for (int64_t e0 = 0; e0 < batch; e0 += kMaxGridY) {
     const int64_t n = batch - e0 < kMaxGridY ? batch - e0 : kMaxGridY;
     const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
-    auto kernel = n > 1 ? mul_kernel<kCount, kVec, true> : mul_kernel<kCount, kVec, false>;
-    kernel<<<grid, kThreads, smem, stream>>>(
+    auto kernel = n > 1 ? mul_kernel<kVec, true> : mul_kernel<kVec, false>;
+    kernel<<<grid, kThreads, 0, stream>>>(
         static_cast<const uint32_t*>(a) + e0 * w * t1,
         static_cast<const uint32_t*>(b) + e0 * w * t2,
-        static_cast<const uint32_t*>(mask), static_cast<uint32_t*>(out) + e0 * w * t1 * t2,
-        static_cast<unsigned long long*>(count) + (count ? e0 : 0), w, t1, t2);
+        static_cast<uint32_t*>(out) + e0 * w * t1 * t2, w, t1, t2);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-template <bool kCount, bool kStreamB>
-cudaError_t launch_ragged(const void* a, const void* b, const void* mask, void* out,
-                          void* count, void* scratch, int64_t batch, int64_t w, int64_t t1,
-                          int64_t t2, cudaStream_t stream) {
+template <bool kStreamB>
+cudaError_t launch_ragged(const void* a, const void* b, void* out, int64_t batch, int64_t w,
+                          int64_t t1, int64_t t2, cudaStream_t stream) {
   const int64_t blocks =
       kStreamB ? t1 * ((t2 + kTile - 1) / kTile) : (t1 * t2 + kTile - 1) / kTile;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  const size_t smem = kCount ? static_cast<size_t>(w) * sizeof(uint32_t) : 0;
   for (int64_t e0 = 0; e0 < batch; e0 += kMaxGridY) {
     const int64_t n = batch - e0 < kMaxGridY ? batch - e0 : kMaxGridY;
     const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
-    auto kernel = n > 1 ? mul_ragged_kernel<kCount, kStreamB, true>
-                        : mul_ragged_kernel<kCount, kStreamB, false>;
-    kernel<<<grid, kThreads, smem, stream>>>(
+    auto kernel = n > 1 ? mul_ragged_kernel<kStreamB, true> : mul_ragged_kernel<kStreamB, false>;
+    kernel<<<grid, kThreads, 0, stream>>>(
         static_cast<const uint32_t*>(a) + e0 * w * t1,
         static_cast<const uint32_t*>(b) + e0 * w * t2,
-        static_cast<const uint32_t*>(mask), static_cast<uint32_t*>(out) + e0 * w * t1 * t2,
-        static_cast<unsigned long long*>(count) + (count ? e0 : 0),
-        static_cast<unsigned long long*>(scratch) + (scratch ? 3 * e0 : 0), w, t1, t2);
+        static_cast<uint32_t*>(out) + e0 * w * t1 * t2, w, t1, t2);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-template <bool kCount>
-cudaError_t launch_mode(const void* a, const void* b, const void* mask, void* out, void* count,
-                        void* scratch, int64_t batch, int64_t w, int64_t t1, int64_t t2,
-                        int64_t mode, cudaStream_t s) {
-  switch (mode) {
-    case 0: return launch<kCount, 1>(a, b, mask, out, count, batch, w, t1, t2, s);
-    case 1: return launch<kCount, 4>(a, b, mask, out, count, batch, w, t1, t2, s);
-    case 2: return launch_ragged<kCount, false>(a, b, mask, out, count, scratch, batch, w, t1,
-                                                t2, s);
-    default: return launch_ragged<kCount, true>(a, b, mask, out, count, scratch, batch, w, t1,
-                                                t2, s);
+cudaError_t launch_count(const void* a, const void* b, const void* mask, void* count,
+                         void* scratch, int64_t batch, int64_t w, int64_t t1, int64_t t2,
+                         cudaStream_t stream) {
+  const int64_t spans = (t1 + t2 + kCountSpan - 1) / kCountSpan;
+  const int64_t sweeps = (spans + kCountMaxBlocks - 1) / kCountMaxBlocks;
+  const int64_t blocks = (spans + sweeps - 1) / sweeps;
+  if (blocks > 1) {
+    const cudaError_t err = cudaMemsetAsync(
+        scratch, 0, static_cast<size_t>(batch) * 2 * sizeof(unsigned long long), stream);
+    if (err != cudaSuccess) return err;
   }
+  for (int64_t e0 = 0; e0 < batch; e0 += kMaxGridY) {
+    const int64_t n = batch - e0 < kMaxGridY ? batch - e0 : kMaxGridY;
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
+    match_count_kernel<<<grid, kCountThreads, static_cast<size_t>(w) * sizeof(uint32_t),
+                         stream>>>(
+        static_cast<const uint32_t*>(a) + e0 * w * t1,
+        static_cast<const uint32_t*>(b) + e0 * w * t2, static_cast<const uint32_t*>(mask),
+        static_cast<unsigned long long*>(count) + e0,
+        static_cast<unsigned long long*>(scratch) + 2 * e0, w, t1, t2);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // a [batch, w, t1], b [batch, w, t2] -> out [batch, w, t1*t2]; with `mask`
-// [w] non-null, also adds element e's match count into the zeroed int64
-// count[e].  mode: 0 = aligned walk with 4-byte stores, 1 = aligned (K1/K2;
-// needs t1*t2 % 4 == 0 and a 16-byte-aligned out), 2 = unaligned,
-// 3 = b-streamed.  Modes 2 and 3 take t1, t2 < 2^32 and, with a mask,
-// `scratch`, int64 [batch, 3] zeroed.  Launches ceil(batch / 65535) grids.  Returns
-// cudaGetLastError().
+// [w] non-null, also writes element e's match count into the int64 count[e]
+// (any prior content) by the column-match pass, launched after the product on
+// the same stream (before it, the pass left the unaligned product at 1021 x
+// 16411, which re-reads b from L2, 1-2 % slower on an H100); `scratch` is
+// int64 [batch, 2] of any content, zeroed here when the pass needs it.  mode: 0 =
+// aligned walk with 4-byte stores, 1 = aligned (K1; needs t1*t2 % 4 == 0
+// and a 16-byte-aligned out), 2 = unaligned, 3 = b-streamed.  Modes 2 and 3,
+// and the count, take t1, t2 < 2^32.  A product with no chunks launches
+// nothing and leaves count as it was.  Launches ceil(batch / 65535) grids of
+// the pass and as many of the product.  Returns cudaGetLastError().
 extern "C" int csgn_mul(const void* a, const void* b, const void* mask, void* out,
                         void* count, void* scratch, int64_t batch, int64_t w, int64_t t1,
                         int64_t t2, int64_t mode, void* stream) {
@@ -345,12 +376,18 @@ extern "C" int csgn_mul(const void* a, const void* b, const void* mask, void* ou
   if (mode == 1 && ((t1 * t2) % 4 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)) {
     return cudaErrorInvalidValue;
   }
-  if (mode >= 2 && ((mask != nullptr && scratch == nullptr) || t1 > 0xffffffffll ||
-                    t2 > 0xffffffffll)) {
+  if ((mode >= 2 || mask != nullptr) && (t1 > 0xffffffffll || t2 > 0xffffffffll)) {
     return cudaErrorInvalidValue;
   }
-  if (mask != nullptr) {
-    return launch_mode<true>(a, b, mask, out, count, scratch, batch, w, t1, t2, mode, s);
+  if (mask != nullptr && (count == nullptr || scratch == nullptr)) return cudaErrorInvalidValue;
+  if (batch <= 0 || w <= 0 || t1 <= 0 || t2 <= 0) return cudaSuccess;
+  cudaError_t err;
+  switch (mode) {
+    case 0: err = launch<1>(a, b, out, batch, w, t1, t2, s); break;
+    case 1: err = launch<4>(a, b, out, batch, w, t1, t2, s); break;
+    case 2: err = launch_ragged<false>(a, b, out, batch, w, t1, t2, s); break;
+    default: err = launch_ragged<true>(a, b, out, batch, w, t1, t2, s); break;
   }
-  return launch_mode<false>(a, b, mask, out, count, scratch, batch, w, t1, t2, mode, s);
+  if (err != cudaSuccess || mask == nullptr) return err;
+  return launch_count(a, b, mask, count, scratch, batch, w, t1, t2, s);
 }

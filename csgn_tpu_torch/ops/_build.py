@@ -77,6 +77,10 @@ LAUNCHES = {
     "mul_decrypt_unaligned_batched": 0,
     "mul_chunks_tiled_batched": 0,
     "mul_decrypt_tiled_batched": 0,
+    # the column-match pass that writes mul_decrypt's count (csrc/mul.cu),
+    # launched beside the product of every fused call, in every mode
+    "mul_count": 0,
+    "mul_count_batched": 0,
     "apply_benes": 0,
     "apply_benes_batch": 0,
     "apply_benes_decrypt": 0,

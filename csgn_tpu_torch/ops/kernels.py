@@ -3,16 +3,24 @@ torch versions.
 
   * K1 `mul_chunks` — chunk cross-product AND (csrc/mul.cu; replaces
     csgn_tpu/ops/kernels.py `mul_chunks_pallas`).
-  * K2 `mul_decrypt` — K1 plus the product's decrypt count in the same pass
-    (csrc/mul.cu with the count on; replaces `mul_decrypt_pallas`).
-  * The same two wrappers launch csrc/mul.cu in one of three modes, picked
-    by `mul_mode` from the shapes and the output's alignment: "aligned"
+  * K2 `mul_decrypt` — the product and its decrypt count (replaces
+    `mul_decrypt_pallas`): `mul_chunks`' own product kernel followed, on the
+    same stream, by the column-match pass of csrc/mul.cu.
+    A product chunk (i, j) matches iff a's chunk i and b's chunk j both
+    match, so the pass tests a's t1 and b's t2 columns on the mask's nonzero
+    words and writes ``count = na * nb`` per element (exact int64; written,
+    not accumulated, so the count needs no zeroed buffer).  Its launches
+    count under ``LAUNCHES["mul_count"]`` (``"mul_count_batched"`` for
+    batches), beside the product's under the wrapper's own key.
+  * The same two wrappers launch csrc/mul.cu's product in one of three modes,
+    picked by `mul_mode` from the shapes and the output's alignment: "aligned"
     (K1/K2), "unaligned" (any t1*t2; does the job of `mul_chunks_pallas_grouped`
-    K10, `mul_chunks_pallas_tiled_ragged` K11a and
+    K10, `mul_chunks_pallas_tiled_ragged` K11a and, with the pass,
     `mul_decrypt_pallas_tiled_ragged` K11b, with no pad chunks) and
     "tiled", b streamed tile by tile when b is larger than
-    `B_STREAM_BYTES` (`mul_chunks_pallas_tiled` K6a, `mul_decrypt_pallas_tiled`
-    K6b).  Every mode writes the canonical i-major product.
+    `B_STREAM_BYTES` (`mul_chunks_pallas_tiled` K6a, with the pass
+    `mul_decrypt_pallas_tiled` K6b).  Every mode writes the canonical i-major
+    product.
   * K3 `decrypt_parity` / `chunk_matches` — streaming eq-all against the key
     mask, as a count or per chunk (csrc/decrypt.cu; replaces
     `decrypt_parity_pallas`).
@@ -162,21 +170,25 @@ def _mul_cuda(name: str, a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor | 
         *lead, w, t1 = a.shape
         t2 = b.shape[-1]
         out = torch.empty((*lead, w, t1 * t2), dtype=torch.int32, device=a.device)
-        count = None if mask is None else torch.zeros(lead, dtype=torch.int64, device=a.device)
+        count = scratch = None
+        if mask is not None:  # the pass writes every count; an empty product has count 0
+            alloc = torch.empty if out.numel() else torch.zeros
+            count = alloc(lead, dtype=torch.int64, device=a.device)
         if out.numel():
             if mode is None:
                 mode = mul_mode(w, t1, t2, out.data_ptr() % 16 == 0)
             batch = lead[0] if lead else 1
-            ragged = mode in ("unaligned", "tiled")
-            scratch = None
-            if mask is not None and ragged:
-                scratch = torch.zeros((batch, 3), dtype=torch.int64, device=a.device)
+            if mask is not None:
+                scratch = torch.empty((batch, 2), dtype=torch.int64, device=a.device)
             with torch.cuda.device(a.device):
                 check(name, lib().csgn_mul(
                     ptr(a), ptr(b), ptr(mask), ptr(out), ptr(count), ptr(scratch), batch, w,
                     t1, t2, _MODE_CODES[mode], stream_of(a)
                 ))
+            ragged = mode in ("unaligned", "tiled")
             LAUNCHES[_counted(f"{name}_{mode}" if ragged else name, a)] += grids(batch)
+            if mask is not None:
+                LAUNCHES[_counted("mul_count", a)] += grids(batch)
             metrics.count(f"{name}.{mode}")
         return out, count
 
@@ -193,8 +205,9 @@ def mul_chunks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def mul_decrypt(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor, *,
                 return_count: bool = False):
-    """Fused multiply + decrypt: ``(prod [W, t1*t2], parity)`` in one pass
-    (batched: ``(prod [B, W, t1*t2], parity int64[B])``).
+    """Fused multiply + decrypt: ``(prod [W, t1*t2], parity)`` from the
+    product kernel and the column-match pass, one C call (batched:
+    ``(prod [B, W, t1*t2], parity int64[B])``).
 
     ``return_count=True`` returns the exact int64 match count instead of the
     parity (the JAX kernel's int32 accumulator keeps only the low bit exact).

@@ -159,12 +159,12 @@ def sharded_mul_decrypt(a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor, me
                         axis: str = CHUNK_AXIS):
     """Chunk-sharded FUSED multiply+decrypt: ``(product block, parity)``.
 
-    Each rank runs the fused kernel (K2 in count form) on its (i_local, j)
-    block, writing its product block and counting its matches in the same
-    pass; one int64 all-reduce crosses the mesh and the parity is the total
-    mod 2 (an int64 0-dim tensor, the same on every rank).  The product is
-    never re-read.  Bit-identical to `sharded_mul_allgather` then
-    `sharded_decrypt_parity`.
+    Each rank runs the fused op (K2: the product kernel and the column-match
+    pass) on its (i_local, j) block, writing its product block and its count
+    na_block * nb_gathered, exact and summable; one int64 all-reduce crosses
+    the mesh and the parity is the total mod 2 (an int64 0-dim tensor, the
+    same on every rank).  The product is never re-read.  Bit-identical to
+    `sharded_mul_allgather` then `sharded_decrypt_parity`.
     """
     _check_block("sharded_mul_decrypt", a, mesh)
     _check_block("sharded_mul_decrypt", b, mesh)

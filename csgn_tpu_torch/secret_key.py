@@ -225,11 +225,11 @@ class SecretKey:
             return dispatch.chunk_matches(words, self._mask_t)
 
     def mul_and_decrypt(self, c1: Ciphertext, c2: Ciphertext) -> tuple[Ciphertext, Plaintext]:
-        """Fused multiply + decrypt: ``(c1 * c2, Dec(c1 * c2))`` in one pass.
+        """Fused multiply + decrypt: ``(c1 * c2, Dec(c1 * c2))`` in one call.
 
-        The product is written once and its decrypt count is taken in the
-        same kernel, so the decrypt's full re-read of the product is gone
-        (csrc/mul.cu).  It takes ``*``'s route
+        The product is written once and never re-read: its decrypt count is
+        the number of c1's matching chunks times c2's, which a short pass
+        over the operands writes (csrc/mul.cu).  It takes ``*``'s route
         (`ops.dispatch.mul_decrypt_auto`; the parity is chunk-order
         independent), so the product carries the same order tag as ``c1 *
         c2`` (canonical under `set_eager_order(True)`).  Bit-exact to

@@ -1,6 +1,6 @@
 """Kernel times for comparing two trees of the port on one card, in turns.
 
-    PYTHONPATH=<tree> python3 csgn_tpu_torch/tools/ab_times.py {encrypt,benes,benes-wide,benes-lanes,routes}
+    PYTHONPATH=<tree> python3 csgn_tpu_torch/tools/ab_times.py {encrypt,benes,benes-wide,benes-lanes,routes,muldec}
 
 times the kernels of the csgn_tpu_torch package found first on the path
 (the tree's), through the public wrappers, and prints one JSON line.  Run it
@@ -28,7 +28,14 @@ after one untimed call (CUDA events), three runs a kernel:
     unaligned 17 x (2^19 + 1), where b streams (both forms), and the pad
     route (zero chunks appended to one operand, `pad_route`, then the
     aligned mode) at 4099 x 37 and 151,663 x 111 against the unaligned
-    mode.
+    mode;
+  * ``muldec``: the fused multiply+decrypt (`mul_decrypt`) in turns with
+    `mul_chunks` at the bulk cells' shapes, 4096 x 4096, 1021 x 16411,
+    151,663 x 111 and 16 x 2^19, at Context(1247, 16), on operands whose
+    every chunk matches the key (the count reads every nonzero mask row of
+    a and b) and, for the fused op, on random words; with each shape's mode,
+    byte bound (operands read and product written once over 3.35 TB/s) and
+    the launches of one fused call by ``LAUNCHES`` key.
 
 It needs an NVIDIA GPU.
 """
@@ -197,17 +204,44 @@ def route_times(dev) -> dict:
     return out
 
 
+def muldec_times(dev) -> dict:
+    ctx = Context(1247, 16)
+    w = ctx.words32
+    sk = SecretKey.generate(ctx, rng.key(11), dev)
+    m = sk.mask_words
+    hit = torch.from_numpy(sk.mask.view(np.int32)).to(dev)[:, None]
+    out = {}
+    for t1, t2 in ((4096, 4096), (1021, 16411), (151663, 111), (16, 1 << 19)):
+        rand = list(zip(_words(ctx, t1, 5, dev), _words(ctx, t2, 5, dev)))
+        every = [(x | hit, y | hit) for x, y in rand]
+        before = dict(kernels.LAUNCHES)
+        kernels.mul_decrypt(*every[0], m)
+        launched = {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+        fns = {"fused": lambda p: kernels.mul_decrypt(p[0], p[1], m),
+               "mul_chunks": lambda p: kernels.mul_chunks(p[0], p[1])}
+        row = {"mode": kernels.mul_mode(w, t1, t2, True), "launches": launched,
+               "bound_ms": 4 * w * (t1 + t2 + t1 * t2) / 3.35e12 * 1e3,
+               **{name: [] for name in fns}, "fused_random": []}
+        for _ in range(3):
+            for name, fn in fns.items():
+                row[name].append(run_ms(fn, every))
+            row["fused_random"].append(run_ms(fns["fused"], rand))
+        out[f"{t1}x{t2}"] = row
+        del rand, every
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("what", choices=("encrypt", "benes", "benes-wide", "benes-lanes",
-                                         "routes"))
+                                         "routes", "muldec"))
     parser.add_argument("--forced", default="", help="benes-lanes: comma-separated paths to "
                         "time in turns with the routed one")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     fns = {"encrypt": encrypt_times, "benes": benes_times, "benes-wide": benes_wide_times,
            "benes-lanes": lambda d: benes_lanes_times(d, [p for p in args.forced.split(",") if p]),
-           "routes": route_times}
+           "routes": route_times, "muldec": muldec_times}
     print(json.dumps({"package": csgn_tpu_torch.__file__, args.what: fns[args.what](dev)}))
 
 

@@ -433,6 +433,202 @@ def test_vec1_walk_still_matches_plain(dev):
                                                        return_count=True)[1]) == 1
 
 
+# ---------------------------------------------------------------------------
+# The fused count: the mode's product kernel, then the column-match pass
+# ---------------------------------------------------------------------------
+
+# (mode, t1, t2): one pass block an element (t1 + t2 <= 1024) and several.
+COUNT_SHAPES = [("aligned", 4, 8), ("aligned", 2048, 4), ("unaligned", 3, 5),
+                ("unaligned", 1021, 17), ("tiled", 7, 3), ("tiled", 7, 2049),
+                ("vec1", 5, 7), ("vec1", 1500, 3)]
+
+
+def _fused(a, b, m, mode):
+    """mul_decrypt's count in `mode` (vec1 forced, tiled by the threshold)."""
+    if mode == "vec1":
+        return kernels._mul_cuda("mul_decrypt", a, b, m, mode="vec1")
+    return kernels.mul_decrypt(a, b, m, return_count=True)
+
+
+def _set_matches(words, mask, cols):
+    """Every column of `words` made to match the mask (cols "all") or to miss
+    it (cols "none": the mask's bits cleared), in place."""
+    m = torch.from_numpy(mask.view(np.int32)).to(words.device)[:, None]
+    if cols == "all":
+        words |= m
+    else:
+        words &= ~m
+    return words
+
+
+@pytest.mark.parametrize("matches", ["all", "none", "some"])
+@pytest.mark.parametrize("mode,t1,t2", COUNT_SHAPES)
+def test_count_pass_matches_plain_and_k3_in_every_mode(dev, monkeypatch, mode, t1, t2,
+                                                       matches):
+    """The fused count equals the plain version's and K3's count of
+    `mul_chunks`' product; every chunk matching gives t1 * t2 and none 0.
+    The pass counts one launch under mul_count per fused call and none per
+    `mul_chunks` call, whose own counter the fused call leaves alone."""
+    if mode == "tiled":
+        monkeypatch.setattr(kernels, "B_STREAM_BYTES", 64)
+    sk = _key(CTX, 31 * t1 + t2, dev)
+    m = sk.mask_words
+    a = _words(CTX, t1, t1 + 3, dev, sk.mask, forced=range(0, t1, 3))
+    b = _words(CTX, t2, t2 + 4, dev, sk.mask, forced=range(1, t2, 2))
+    if matches != "some":
+        _set_matches(a, sk.mask, matches)
+        _set_matches(b, sk.mask, matches)
+    if mode != "vec1":
+        assert kernels.mul_mode(CTX.words32, t1, t2, True) == mode
+    before = dict(kernels.LAUNCHES)
+    prod, count = _fused(a, b, m, mode)
+    after_fused = dict(kernels.LAUNCHES)
+    want_prod = kernels.mul_chunks(a, b)
+    k3 = kernels.decrypt_parity(want_prod, m, return_count=True)
+    _, plain = kernels.mul_decrypt_plain(a, b, m, return_count=True)
+    assert torch.equal(prod, want_prod)
+    assert int(count) == int(plain) == int(k3)
+    if matches == "all":
+        assert int(count) == t1 * t2
+    elif matches == "none":
+        assert int(count) == 0
+    else:
+        assert int(count) >= len(range(0, t1, 3)) * len(range(1, t2, 2)) > 0
+    assert after_fused["mul_count"] == before["mul_count"] + 1
+    assert after_fused["mul_chunks"] == before["mul_chunks"]
+    moved = {k for k in after_fused if after_fused[k] != before[k]}
+    assert len(moved) == 2 and "mul_count" in moved   # the product's key and the pass's
+    assert kernels.LAUNCHES["mul_count"] == after_fused["mul_count"]   # mul_chunks: no pass
+
+
+@pytest.mark.parametrize("mode,t1,t2", [s for s in COUNT_SHAPES if s[0] != "vec1"])
+@pytest.mark.parametrize("batch", [3, 6])
+def test_count_pass_batched_with_misaligned_element_bases(dev, monkeypatch, mode, t1, t2,
+                                                         batch):
+    """W = 6: odd elements' bases leave the 16-byte grid (aligned shapes
+    included, whose batches still take the aligned mode when t1*t2 % 4 == 0).
+    Element e matches everywhere, nowhere or in some columns by e % 3; each
+    count equals the element's own 2-D count and K3's."""
+    if mode == "tiled":
+        monkeypatch.setattr(kernels, "B_STREAM_BYTES", 64)
+    sk = _key(ODD_W, batch * t1 + t2, dev)
+    m = sk.mask_words
+    a = torch.stack([_words(ODD_W, t1, 10 * e + 1, dev, sk.mask, forced=range(e % 2, t1, 2))
+                     for e in range(batch)])
+    b = torch.stack([_words(ODD_W, t2, 10 * e + 2, dev, sk.mask, forced=range(0, t2, 3))
+                     for e in range(batch)])
+    for e in range(0, batch, 3):
+        _set_matches(a[e], sk.mask, "all")
+        _set_matches(b[e], sk.mask, "all")
+    for e in range(1, batch, 3):
+        _set_matches(b[e], sk.mask, "none")
+    before = kernels.LAUNCHES["mul_count_batched"]
+    prod, count = kernels.mul_decrypt(a, b, m, return_count=True)
+    assert kernels.LAUNCHES["mul_count_batched"] == before + 1
+    assert torch.equal(prod, kernels.mul_chunks_plain(a, b))
+    assert torch.equal(count, kernels.decrypt_parity(prod, m, return_count=True))
+    for e in range(batch):
+        assert int(count[e]) == int(kernels.mul_decrypt(a[e], b[e], m, return_count=True)[1])
+    assert [int(count[e]) for e in range(0, batch, 3)] == [t1 * t2] * len(range(0, batch, 3))
+    assert all(int(count[e]) == 0 for e in range(1, batch, 3))
+
+
+@pytest.mark.parametrize("n,d,t1,t2", [(1247, 200, 1021, 17), (20000, 64, 3, 700),
+                                        (70000, 16, 1030, 2)])
+def test_count_pass_at_many_mask_words(dev, n, d, t1, t2):
+    """Nearly every mask word nonzero (d = 200 at W = 40), and more mask words than
+    the pass's threads (W = 626, 2188): the pass lists the nonzero rows in
+    strides of its block and loads them in several groups."""
+    ctx = Context(n, d)
+    sk = _key(ctx, n + d, dev)
+    m = sk.mask_words
+    a = _words(ctx, t1, 1, dev, sk.mask, forced=range(0, t1, 2))
+    b = _words(ctx, t2, 2, dev, sk.mask, forced=range(1, t2, 3))
+    for words in (None, "all"):
+        if words:
+            _set_matches(a, sk.mask, words)
+            _set_matches(b, sk.mask, words)
+        prod, count = kernels.mul_decrypt(a, b, m, return_count=True)
+        _, plain = kernels.mul_decrypt_plain(a, b, m, return_count=True)
+        assert torch.equal(prod, kernels.mul_chunks_plain(a, b))
+        assert int(count) == int(plain) == int(kernels.decrypt_parity(prod, m,
+                                                                      return_count=True))
+        assert int(count) == (t1 * t2 if words else int(count)) > 0
+
+
+def test_count_of_an_empty_product_is_zero_with_no_launch(dev):
+    sk = _key(CTX, 17, dev)
+    m = sk.mask_words
+    full = _set_matches(_words(CTX, 5, 1, dev), sk.mask, "all")
+    for a, b in ((full[:, :0], full), (full, full[:, :0]),
+                 (full[None, :, :0].repeat(3, 1, 1), full[None].repeat(3, 1, 1))):
+        # a freed all-match count first, so a block with nonzero bytes is at hand
+        kernels.mul_decrypt(full, full, m, return_count=True)
+        before = dict(kernels.LAUNCHES)
+        prod, count = kernels.mul_decrypt(a.contiguous(), b.contiguous(), m, return_count=True)
+        assert kernels.LAUNCHES == before
+        assert prod.numel() == 0 and tuple(count.shape) == tuple(a.shape[:-2])
+        assert not bool(count.any())
+
+
+@pytest.mark.parametrize("t1,t2", [(4, 8), (3, 5), (2048, 4), (1021, 17)])
+def test_count_is_written_not_accumulated(dev, t1, t2):
+    """Fused calls in a row reuse the freed count block (and, with several
+    pass blocks, the freed scratch): each count is its own call's."""
+    sk = _key(CTX, t1 * t2, dev)
+    m = sk.mask_words
+    hit = [_set_matches(_words(CTX, t, t, dev), sk.mask, "all") for t in (t1, t2)]
+    miss = [_set_matches(_words(CTX, t, t + 1, dev), sk.mask, "none") for t in (t1, t2)]
+    want = [t1 * t2, 0, t1 * t2, t1 * t2, 0]
+    for pair, w in zip((hit, miss, hit, hit, miss), want):
+        _, count = kernels.mul_decrypt(*pair, m, return_count=True)
+        assert int(count) == w
+        del count
+    batch = 4
+    bh = [x[None].repeat(batch, 1, 1) for x in hit]
+    for k in range(3):
+        _, count = kernels.mul_decrypt(*bh, m, return_count=True)
+        assert count.tolist() == [t1 * t2] * batch, k
+        del count
+
+
+def test_count_pass_past_the_grid_limit_with_several_blocks(dev):
+    """65538 elements of 1 x 1030 (two pass blocks an element): two grids of
+    the pass, each element's scratch its own."""
+    batch, t2 = 65535 + 3, 1030
+    sk = _key(SMALL, 6, dev)
+    m = sk.mask_words
+    a = _set_matches(_words(SMALL, 1, 1, dev), sk.mask, "all")[None].repeat(batch, 1, 1)
+    b = _words(SMALL, t2, 2, dev, sk.mask, forced=range(0, t2, 7))[None].repeat(batch, 1, 1)
+    a[::3, :, 0] = 0                                   # these elements count 0
+    b[1::2, :, :500] = 0                               # these fewer
+    a[-1, :, 0] = 0
+    before = dict(kernels.LAUNCHES)
+    prod, count = kernels.mul_decrypt(a, b, m, return_count=True)
+    assert kernels.LAUNCHES["mul_count_batched"] == before["mul_count_batched"] + 2
+    assert torch.equal(count, kernels.decrypt_parity(prod, m, return_count=True))
+    na = kernels.chunk_matches(a, m).sum(-1)
+    nb = kernels.chunk_matches(b, m).sum(-1)
+    assert torch.equal(count, na * nb)
+    assert int(count[-1]) == 0 < int(count[-2]) and int(count[-3]) == 0
+    assert len(set(count.tolist())) == 3
+    assert torch.equal(prod[-2:], kernels.mul_chunks_plain(a[-2:], b[-2:]))
+
+
+def test_count_pass_builds_without_spills(dev):
+    """The pass compiles to one kernel with no spills, and the product
+    kernels have only their product forms: (kVec 1, 4) and (streamed or
+    not), each 2-D and batched."""
+    from csgn_tpu_torch.ops import _build
+
+    rows = _build.kernel_resources()
+    count = [r for r in rows if "match_count_kernel" in r["kernel"]]
+    assert len(count) == 1, count
+    assert count[0]["spill_stores"] == count[0]["spill_loads"] == 0, count
+    assert len([r for r in rows if "mul_kernelI" in r["kernel"]]) == 4
+    assert len([r for r in rows if "mul_ragged_kernelI" in r["kernel"]]) == 4
+
+
 def test_chain_circuit_and_serve_on_card_equal_cpu(dev):
     """mul_chain(_decrypt), a fleet DAG readout and the executor's routes on
     the card give the CPU path's words and bits."""

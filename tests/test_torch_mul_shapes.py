@@ -113,3 +113,29 @@ def test_mul_mode_boundaries():
     # W only moves the streaming threshold (b's bytes).
     assert kernels.mul_mode(6, 3, limit + 1, True) == "unaligned"
     assert kernels.mul_mode(6, 4, 4 * limit, True) == "aligned"
+
+
+@pytest.mark.parametrize("matches", ["all", "none", "some"])
+@pytest.mark.parametrize("t1,t2", [(1, 1), (3, 37), (1021, 17), (16, 130)])
+def test_count_is_matching_a_columns_times_matching_b_columns(ctx, t1, t2, matches):
+    """The identity the card's fused count is computed by (csrc/mul.cu's
+    column-match pass writes na * nb): the product's match count, from the
+    port and from csgn_tpu's `mul_decrypt_count`, is the number of a's
+    matching columns times b's; t1 * t2 when every chunk matches, 0 when
+    none does."""
+    a, b, mask = _operands(ctx, t1, t2, 3 * t1 + t2)
+    if matches == "all":
+        a |= mask[:, None]
+        b |= mask[:, None]
+    elif matches == "none":
+        a &= ~mask[:, None]
+        b &= ~mask[:, None]
+    ta, tb, tm = (words_from_numpy(x, "cpu") for x in (a, b, mask))
+    na = int(kernels.chunk_matches(ta, tm).sum())
+    nb = int(kernels.chunk_matches(tb, tm).sum())
+    _, count = kernels.mul_decrypt(ta, tb, tm, return_count=True)
+    _, jcount = jdispatch.mul_decrypt_count(jnp.asarray(a), jnp.asarray(b), jnp.asarray(mask))
+    assert int(count) == int(jcount) == na * nb
+    assert na * nb == {"all": t1 * t2, "none": 0}.get(matches, na * nb)
+    if matches == "some":
+        assert na >= len(range(0, t1, 2)) and nb >= len(range(0, t2, 3))
