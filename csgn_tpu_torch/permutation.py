@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 
 from csgn_tpu_torch import rng
+from csgn_tpu_torch.utils.metrics import op_metrics
 
 __all__ = ["Permutation"]
 
@@ -38,11 +39,16 @@ class Permutation:
 
     def benes_plan(self):
         """Cached Beneš delta-swap routing (see ops.permute_benes); the plan
-        also caches its device copies, so repeated rotations upload nothing."""
+        also caches its device copies, so repeated rotations upload nothing.
+        A build (a cache miss) counts under ``perm.plan_builds`` and is the
+        span ``perm.plan`` while spans are recorded (`utils.metrics`)."""
         if self._plan is None:
             from csgn_tpu_torch.ops.permute_benes import build_plan
 
-            self._plan = build_plan(self.perm, self.n)
+            metrics = op_metrics()
+            metrics.count("perm.plan_builds")
+            with metrics.span("perm.plan"):
+                self._plan = build_plan(self.perm, self.n)
         return self._plan
 
     # -- constructors -------------------------------------------------------

@@ -378,12 +378,14 @@ class SecretKey:
         staged (K8 then K3) as the JAX package keeps it (see
         `ops.dispatch.permute_decrypt`).  By the transform identity the
         result equals ``self.decrypt(ciphertext)``.  The order tag and pad
-        chunks carry over.
+        chunks carry over.  The rotated key's build and copies are the span
+        ``key.apply_permutation``, before the op's own span.
         """
         self._check(ciphertext)
         if p.n != self.ctx.n:
             raise ValueError(f"permutation length {p.n} != context n {self.ctx.n}")
-        psk = self.apply_permutation(p)
+        with op_metrics().span("key.apply_permutation"):
+            psk = self.apply_permutation(p)
         with op_metrics().record(
             "key.permute_and_decrypt", chunks_in=ciphertext.chunks,
             chunks_out=ciphertext.chunks,
@@ -391,7 +393,7 @@ class SecretKey:
         ):
             out, parity = dispatch.permute_decrypt(ciphertext.wt, p.benes_plan(), psk.mask_words)
             return (Ciphertext(out, self.ctx, ciphertext.logical, ciphertext.pad),
-                    Plaintext(int(parity)))
+                    Plaintext(_read_bit(parity)))
 
     def apply_permutation(self, p: Permutation) -> "SecretKey":
         """Key transform: Dec_{π(k)}(π(c)) = Dec_k(c), a new key on the same

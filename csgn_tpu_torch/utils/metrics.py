@@ -33,8 +33,13 @@ The program's spans:
     the group's request count) over ``executor.stack``,
     ``executor.readback`` and ``executor.unpack`` (wrappers and futures);
   * API: the `record()` names (``key.*``, ``ct.*``, ``batch.*``,
-    ``sharded.*``), and ``key.readback`` around the ``int(parity)`` of
-    `SecretKey.decrypt` and `SecretKey.mul_and_decrypt`;
+    ``sharded.*``), ``key.readback`` around the ``int(parity)`` of
+    `SecretKey.decrypt`, `SecretKey.mul_and_decrypt` and
+    `SecretKey.permute_and_decrypt`, ``key.apply_permutation`` around the
+    rotated key's build and copies in `SecretKey.permute_and_decrypt` (before
+    its op span), and ``perm.plan`` around a Beneš plan's build in
+    `Permutation.benes_plan` (a cache miss, also counted as
+    ``perm.plan_builds``);
   * kernels: ``launch.<wrapper>`` around each wrapper's CUDA body (mode
     choice, output allocation, the ctypes launch, the ``LAUNCHES`` count).
 """

@@ -25,6 +25,7 @@ from csgn_tpu_torch.layout import words_from_numpy
 from csgn_tpu_torch.ops import benes_kernels, encrypt_kernels, kernels
 from csgn_tpu_torch.ops import core
 from csgn_tpu_torch.ops import permute_benes as pb
+from portbench.reference import rekey
 
 pytestmark = pytest.mark.cuda
 
@@ -274,6 +275,27 @@ def test_benes_register_path_refuses_wide_networks(dev):
     assert benes_kernels.benes_path(plan.words_pad) == "lanes"
     with pytest.raises(RuntimeError, match="CUDA error"):
         _benes_on("register", "apply_benes", x, plan)
+
+
+@pytest.mark.parametrize("chunks", [1 << 22, (1 << 22) + 37, 1 << 24, (1 << 24) + 37])
+def test_benes_k8_at_millions_of_chunks_matches_the_reference(dev, chunks):
+    """K8's register path at n = 1247 through `Ciphertext.apply_permutation`,
+    up to a 4096 x 4096 product's 2^24 chunks and with a partial last block,
+    against the benchmark's plain gather (portbench/reference/rekey.py),
+    compared in blocks of 2^20 chunks."""
+    gen = torch.Generator(device=dev).manual_seed(chunks)
+    x = torch.randint(-2**31, 2**31, (CTX.words32, chunks), dtype=torch.int32, device=dev,
+                      generator=gen)
+    x &= words_from_numpy(CTX.valid_mask, dev)[:, None]
+    perm = np.random.default_rng(chunks).permutation(CTX.n)
+    p = Permutation(perm)
+    assert benes_kernels.benes_path(p.benes_plan().words_pad) == "register"
+    launches = benes_kernels.LAUNCHES["apply_benes"]
+    got = Ciphertext(x, CTX).apply_permutation(p).wt
+    assert benes_kernels.LAUNCHES["apply_benes"] > launches
+    step = 1 << 20
+    for c0 in range(0, chunks, step):
+        assert torch.equal(got[:, c0:c0 + step], rekey.rotate(x[:, c0:c0 + step], perm)), c0
 
 
 @pytest.mark.parametrize("batch,t1,t2", [(1, 3, 5), (4, 1, 1), (5, 13, 7), (3, 128, 130)])
