@@ -37,7 +37,20 @@
 //     rows (or all WP), so it is tested once per 8 rows, uniformly; zero
 //     mask words are computed rather than branched around (on a random plan
 //     at n = 1247, 389 of the 400 live in-word words are nonzero).  Masks
-//     are read as 16-byte broadcasts from shared memory, one per 4 rows;
+//     are read as 16-byte broadcasts from shared memory, one per 4 rows.
+//     The network alone holds the ALU pipe (at 2^24 chunks on an H100 the
+//     copy alone took 1.84 ms, the network alone 2.92 and the kernel with
+//     128-thread blocks 3.49: PERF.md), so the design takes ALU issue off
+//     it: the in-word stage puts its shifts on the FMA pipe
+//     (`in_word_fma`), a row's address is the last one's plus c (r * c
+//     computed anew took about nine instructions a row), and blocks of 256
+//     threads, three an SM (80 registers a thread, no spills), stage the
+//     plan half as often a column as blocks of 128 and hide more latency
+//     than five blocks of 128 did.  The column's loads go out before the
+//     plan is staged.  A
+//     persistent grid (the SMs' resident blocks walking the tiles, the next
+//     column's rows prefetched in registers or by cp.async) was slower than
+//     this grid in every form tried (PERF.md);
 //   * lane-group path, 64 < WP <= 2048 (n <= 65536; benes_lanes.cu): the
 //     column split over the registers of a group of lanes of one warp;
 //   * wide path, WP > 2048 (n > 65536; see its section below): a block's
@@ -66,14 +79,15 @@
 namespace benes {
 namespace {
 
-constexpr int kThreads = 128;           // chunk columns per block (at most)
+constexpr int kThreads = 256;           // chunk columns per block of the register path
+constexpr int kRegisterBlocks = 3;      // its blocks an SM: 80 registers a thread
 constexpr int kMaxRegisterWords = 64;   // widest network of the register path
 constexpr size_t kSmemPerTwoBlocks = 112 * 1024;  // two blocks on an SM's 228 KB
 constexpr int kWideThreads = 768;       // the wide path's block: two fit an SM
 
-// The register path's shared memory: masks [stages][wp], key [max(w, wp)]
-// (count only; zero past w, so it is read in quads like the masks),
-// schedule [stages][2].
+// The register path's shared memory: masks [stages][wp] (an in-word stage's
+// shifted right by its delta), key [max(w, wp)] (count only; zero past w, so
+// it is read in quads like the masks), schedule [stages][2].
 struct Staged {
   uint32_t* masks;
   uint32_t* key;
@@ -89,7 +103,10 @@ __device__ __forceinline__ Staged stage_operands(uint32_t* base, const uint32_t*
   const int64_t kw = key_words(w, wp, count);
   st.sched = reinterpret_cast<int32_t*>(st.key + kw);
   const int bc = blockDim.x;
-  for (int i = threadIdx.x; i < stages * wp; i += bc) st.masks[i] = masks[i];
+  for (int i = threadIdx.x; i < stages * wp; i += bc) {
+    const int d = __ldg(sched + 2 * (i / wp));
+    st.masks[i] = d < 32 ? masks[i] >> d : masks[i];  // `in_word_fma`'s m >> d
+  }
   for (int i = threadIdx.x; i < 2 * stages; i += bc) st.sched[i] = sched[i];
   for (int64_t r = threadIdx.x; r < kw; r += bc) st.key[r] = r < w ? key[r] : 0u;
   __syncthreads();
@@ -100,24 +117,60 @@ __device__ __forceinline__ Staged stage_operands(uint32_t* base, const uint32_t*
 // Register path (the stage arithmetic is benes_network.cuh's)
 // ---------------------------------------------------------------------------
 
+// An in-word stage with half its work on the FMA pipe.  On the H100 the
+// shifts and LOP3s of `in_word` share the ALU pipe, and IMAD issues on the
+// FMA pipe.  A plan's in-word masks mark only the upper bit of a pair (b & d
+// != 0; `_route` marks positions i with (i & d) == 0, MSB first), so with
+// m' = m >> d staged, t' = (v ^ (v >> d)) & m' is t >> d, and t ^ (t >> d)
+// = t' * (1 + 2^d) (disjoint bits); v >> d = umulhi(v, 2^(32 - d)).  Two
+// LOP3s and two IMADs a word instead of two LOP3s and two shifts.
+template <int N>
+__device__ __forceinline__ void in_word_fma(uint32_t (&col)[N], const uint32_t* m, int d,
+                                            int rows) {
+  constexpr int G = N < 8 ? N : 8;
+  constexpr int Q = N < 4 ? N : 4;
+  const uint32_t hi = 1u << (32 - d);
+  const uint32_t both = 1u + (1u << d);
+#pragma unroll
+  for (int g = 0; g < N; g += G) {
+    if (g < rows) {
+#pragma unroll
+      for (int q = g; q < g + G; q += Q) {
+        uint32_t mk[Q];
+        load_masks<Q>(mk, m + q);
+#pragma unroll
+        for (int i = 0; i < Q; ++i) {
+          const uint32_t v = col[q + i];
+          const uint32_t t = (v ^ __umulhi(v, hi)) & mk[i];
+          col[q + i] = v ^ (t * both);
+        }
+      }
+    }
+  }
+}
+
 template <int WP, bool kCount>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kRegisterBlocks)
 benes_register_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ masks,
                       const int32_t* __restrict__ sched, const uint32_t* __restrict__ key,
                       uint32_t* __restrict__ out, unsigned long long* __restrict__ count,
                       int64_t w, int64_t c, int stages, int w_net, int64_t plan_stride) {
   const int64_t b = blockIdx.y;
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const bool active = j < c;  // inactive lanes run on zeros for the warp sum
+  // The column's loads go out before the plan is staged, so the two wait
+  // together; a row's address is the last one's plus c.
+  const uint32_t* src = x + b * w * c + j;
+  uint32_t col[WP];
+  {
+    const uint32_t* p = src;
+#pragma unroll
+    for (int r = 0; r < WP; ++r, p += c) col[r] = (active && r < w_net) ? *p : 0u;
+  }
+
   extern __shared__ uint4 smem_reg[];  // 16-byte aligned for the mask quads
   const Staged st = stage_operands(reinterpret_cast<uint32_t*>(smem_reg), masks + b * plan_stride,
                                    sched, key, WP, stages, w, kCount);
-
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool active = j < c;  // inactive lanes run on zeros for the warp sum
-  const uint32_t* src = x + b * w * c + j;
-  uint32_t col[WP];
-#pragma unroll
-  for (int r = 0; r < WP; ++r) col[r] = (active && r < w_net) ? src[r * c] : 0u;
-
   for (int s = 0; s < stages; ++s) {
     const int delta = st.sched[2 * s];
     const int rows = st.sched[2 * s + 1];
@@ -129,15 +182,18 @@ benes_register_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
       case 256: cross_word<WP, 8>(col, m, rows); break;
       case 512: cross_word<WP, 16>(col, m, rows); break;
       case 1024: cross_word<WP, 32>(col, m, rows); break;
-      default: in_word<WP>(col, m, delta, rows); break;
+      default: in_word_fma<WP>(col, m, delta, rows); break;
     }
   }
 
   if (active) {
     uint32_t* dst = out + b * w * c + j;
+    {
+      uint32_t* p = dst;
 #pragma unroll
-    for (int r = 0; r < WP; ++r) {
-      if (r < w_net) dst[r * c] = col[r];
+      for (int r = 0; r < WP; ++r, p += c) {
+        if (r < w_net) *p = col[r];
+      }
     }
     for (int64_t r = w_net; r < w; ++r) dst[r * c] = 0u;
   }

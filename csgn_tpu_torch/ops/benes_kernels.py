@@ -22,7 +22,9 @@ network's width WP = n_pad / 32 (`benes_path`), all counted under the same
 
   * "register" for WP <= `REGISTER_WORDS_PAD` (64, n <= 2048): each thread
     keeps its chunk column in registers, the rows unrolled at compile time
-    for each WP in 1, 2, 4, ..., 64;
+    for each WP in 1, 2, 4, ..., 64, in blocks of 256 columns; its in-word
+    stages rely on a plan's in-word masks marking only the upper bit of
+    each pair, as `permute_benes.build_plan`'s do;
   * "lanes" up to `LANES_WORDS_PAD` (2048, n <= 65536): a group of WP /
     `LANE_WORDS` lanes of a warp keeps the column in registers,
     `LANE_WORDS` rows a lane, the plan's masks in the layout of

@@ -13,8 +13,10 @@ after one untimed call (CUDA events), three runs a kernel:
     it, K14 (the JAX package's default engine) at Context(1247, 16),
     40 x 2^22, K7 also on each of its paths forced (tile, column) where the
     tree has them, and K13 (the Philox stream dump) at 130 x 2^20;
-  * ``benes``: K8 on the register path at n = 1247 over 2^20 chunks, alone
-    and right after its plain version;
+  * ``benes``: the register path at n = 1247: K8 over 2^20 chunks, alone
+    and right after its plain version, K12 over the same, K9 over 64
+    elements of 2^14 chunks, each on its own plan, and K8 over a 4096 x 4096
+    product's 2^24 chunks, a run cycling four plans;
   * ``benes-wide``: K8 and K12 on the wide path at n = 20000 over 2^14
     chunks, and K8 with its global-scratch form forced;
   * ``benes-lanes``: K8 as routed at n in {2049, 4095, 8191, 16383} over
@@ -52,6 +54,7 @@ import torch
 import csgn_tpu_torch
 from csgn_tpu_torch import Context, Permutation, SecretKey, rng
 from csgn_tpu_torch.ops import benes_kernels, encrypt_kernels, kernels
+from csgn_tpu_torch.ops import permute_benes as pb
 
 
 def run_ms(fn, inputs) -> float:
@@ -97,13 +100,28 @@ def encrypt_times(dev) -> dict:
 
 def benes_times(dev) -> dict:
     ctx = Context(1247, 16)
-    plan = Permutation.random(ctx, rng.key(20261016)).benes_plan()
+    p = Permutation.random(ctx, rng.key(20261016))
+    plan = p.benes_plan()
     xs = _words(ctx, 1 << 20, 5, dev)
     k8 = lambda x: benes_kernels.apply_benes(x, plan)  # noqa: E731
     out = {"k8": [run_ms(k8, xs) for _ in range(3)], "k8_after_plain": []}
     for _ in range(2):
         run_ms(lambda x: benes_kernels.apply_benes_plain(x, plan), xs)
         out["k8_after_plain"].append(run_ms(k8, xs))
+    key = SecretKey.generate(ctx, rng.key(6), dev).apply_permutation(p).mask_words
+    out["k12"] = [run_ms(lambda x: benes_kernels.apply_benes_decrypt(x, plan, key), xs)
+                  for _ in range(3)]
+    del xs
+    fleet = pb.stack_plans([Permutation.random(ctx, rng.key(100 + i)).benes_plan()
+                            for i in range(64)])
+    xs = [torch.stack(_words(ctx, 1 << 14, 64, dev)) for _ in range(5)]
+    out["k9_64x2p14"] = [run_ms(lambda x: benes_kernels.apply_benes_batch(x, fleet), xs)
+                         for _ in range(3)]
+    del xs
+    plans = [Permutation.random(ctx, rng.key(900 + i)).benes_plan() for i in range(4)]
+    x = _words(ctx, 1 << 24, 1, dev)[0]
+    out["k8_2p24"] = [run_ms(lambda q: benes_kernels.apply_benes(x, q), plans)
+                      for _ in range(3)]
     return out
 
 

@@ -66,6 +66,79 @@ def test_path_limits():
         assert benes_kernels.benes_path(wp) == "wide"
 
 
+REGISTER_NS = [20, 33, 100, 257, 600, 1247, 2048]
+
+
+@pytest.mark.parametrize("n", REGISTER_NS + [4095])
+def test_in_word_masks_mark_only_upper_bits(n):
+    """Every in-word mask word of a plan marks only bits b with b & d != 0
+    (the upper bit of each pair, MSB-first positions i with i & d == 0),
+    which the register path's in-word stage assumes (csrc/benes.cu
+    `in_word_fma`): random plans, the identity and a stack of both."""
+    rng = np.random.default_rng(n)
+    plans = [pb.build_plan(rng.permutation(n), n) for _ in range(3)]
+    plans.append(pb.build_plan(np.arange(n), n))
+    for plan in plans + [pb.stack_plans(plans)]:
+        masks = plan.masks if plan.masks.ndim == 3 else plan.masks[None]
+        for s, d in enumerate(plan.deltas):
+            if d < 32:
+                lower = np.uint32(sum(1 << b for b in range(32) if not b & d))
+                assert not np.any(masks[:, s] & lower), (n, s, d)
+
+
+def _register_network(words: np.ndarray, plan) -> np.ndarray:
+    """The register path's network in numpy uint32, stage by stage as
+    csrc/benes.cu computes it: an in-word stage on the pre-shifted mask with
+    the multiply forms (`in_word_fma`), a cross-word stage as the bit select
+    of each pair of rows, over each stage's live rows."""
+    w, c = words.shape
+    col = np.zeros((plan.words_pad, c), dtype=np.uint64)
+    col[:min(w, plan.words_pad)] = words[:plan.words_pad]
+    m32 = 0xFFFFFFFF
+    for mask, d, rows in zip(plan.masks.astype(np.uint64), plan.deltas, plan.rows):
+        if d < 32:
+            m = (mask[:rows] >> np.uint64(d))[:, None]
+            v = col[:rows]
+            hi = (v * np.uint64(1 << (32 - d))) >> np.uint64(32)   # umulhi(v, 2^(32 - d))
+            t = (v ^ hi) & m
+            col[:rows] = v ^ ((t * np.uint64(1 + (1 << d))) & np.uint64(m32))
+        else:
+            r = d // 32
+            lo = np.array([i for i in range(rows) if not i & r], dtype=np.int64)
+            sel = mask[lo][:, None]
+            a, b = col[lo], col[lo + r]
+            col[lo] = (a & ~sel & np.uint64(m32)) | (b & sel)
+            col[lo + r] = (b & ~sel & np.uint64(m32)) | (a & sel)
+    out = np.zeros_like(words)
+    out[:min(w, plan.words_pad)] = col[:min(w, plan.words_pad)].astype(np.uint32)
+    return out
+
+
+@pytest.mark.parametrize("n", REGISTER_NS)
+def test_register_network_emulation_equals_both_plain_networks(n):
+    """The register path's arithmetic, multiply forms and all, emulated in
+    numpy, is bit-equal to the port's plain K8 and to the JAX package's
+    plain network, for random plans and the identity."""
+    import jax.numpy as jnp
+
+    from csgn_tpu_torch.layout import words_from_numpy, words_to_numpy
+
+    rng = np.random.default_rng(n + 1)
+    w = 2 * -(-n // 64)
+    valid = np.zeros(w, np.uint32)
+    np.bitwise_or.at(valid, np.arange(n) // 32, np.uint32(1) << (31 - np.arange(n) % 32)
+                     .astype(np.uint32))
+    x = rng.integers(0, 2**32, (w, 257), dtype=np.uint32) & valid[:, None]
+    for perm in (rng.permutation(n), rng.permutation(n), np.arange(n)):
+        plan = pb.build_plan(perm, n)
+        got = _register_network(x, plan)
+        want = words_to_numpy(benes_kernels.apply_benes_plain(words_from_numpy(x, "cpu"), plan))
+        np.testing.assert_array_equal(got, want)
+        jplan = jpb.BenesPlan(n=plan.n, n_pad=plan.n_pad, deltas=plan.deltas, masks=plan.masks,
+                              rows=plan.rows)
+        np.testing.assert_array_equal(got, np.asarray(jpb.apply_benes(jnp.asarray(x), jplan)))
+
+
 def _hand_plan():
     """A 512-bit network (WP = 16, 17 stages) with a few masks set by hand."""
     n_pad = 512

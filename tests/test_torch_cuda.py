@@ -168,10 +168,11 @@ BENES_WP_NS = [17, 20, 31, 33, 50, 100, 200, 400, 700, 1247, 2048, 2049, 4095]
 
 
 @pytest.mark.parametrize("n", BENES_WP_NS)
-@pytest.mark.parametrize("chunks", [1, 127, 129, 1025])
+@pytest.mark.parametrize("chunks", [1, 127, 129, 255, 256, 257, 3 * 256 + 37, 1025])
 def test_benes_k8_k12_match_plain(dev, n, chunks):
-    """Ragged chunk counts (not a multiple of the 128-column block) and
-    n < 32 (W = 2 rows against a 1-row network), at every network width."""
+    """Ragged chunk counts and those around the register path's 256-column
+    block, and n < 32 (W = 2 rows against a 1-row network), at every
+    network width."""
     ctx, rng, x = _perm_words(n, (), chunks, n * 10 + chunks, dev)
     p = Permutation(rng.permutation(n))
     plan = p.benes_plan()
@@ -296,6 +297,19 @@ def test_benes_k8_at_millions_of_chunks_matches_the_reference(dev, chunks):
     step = 1 << 20
     for c0 in range(0, chunks, step):
         assert torch.equal(got[:, c0:c0 + step], rekey.rotate(x[:, c0:c0 + step], perm)), c0
+
+
+@pytest.mark.parametrize("n,k,chunks", [(1247, 3, 60001), (1247, 64, 1000), (1247, 700, 129),
+                                        (100, 700, 33)])
+def test_benes_k9_fleets_match_plain(dev, n, k, chunks):
+    """K9 on fleets of 3 long elements, 64 of four blocks and 700 of one
+    block, each element on one of five plans in a drawn order, against the
+    plain batch."""
+    _, rng, x = _perm_words(n, (k,), chunks, k + chunks, dev)
+    pool = [Permutation(rng.permutation(n)).benes_plan() for _ in range(5)]
+    stacked = pb.stack_plans([pool[i] for i in rng.integers(0, 5, size=k)])
+    got = benes_kernels.apply_benes_batch(x, stacked)
+    assert torch.equal(got, benes_kernels.apply_benes_batch_plain(x, stacked))
 
 
 @pytest.mark.parametrize("batch,t1,t2", [(1, 3, 5), (4, 1, 1), (5, 13, 7), (3, 128, 130)])
