@@ -67,10 +67,13 @@ constexpr int kThreads = 256;
 constexpr int64_t kMaxGridY = 65535;
 constexpr int64_t kTile = 4 * kThreads - 4;
 
+// kVec is always 4; it stays a template argument so that the kernel keeps its
+// name, mul_kernel<4, ...>, in device traces.
 template <int kVec, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
 mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
            uint32_t* __restrict__ out, int64_t w, int64_t t1, int64_t t2) {
+  static_assert(kVec == 4, "one 16-byte store a thread");
   if (kBatched) {
     const int64_t e = blockIdx.y;
     a += e * w * t1;
@@ -97,12 +100,7 @@ mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
 #pragma unroll
       for (int k = 0; k < kVec; ++k) v[k] = arow[ai[k]] & brow[bj[k]];
       uint32_t* orow = out + r * c + col0;
-      if (kVec == 4) {
-        *reinterpret_cast<uint4*>(orow) = make_uint4(v[0], v[1], v[2], v[3]);
-      } else {
-#pragma unroll
-        for (int k = 0; k < kVec; ++k) orow[k] = v[k];
-      }
+      *reinterpret_cast<uint4*>(orow) = make_uint4(v[0], v[1], v[2], v[3]);
     }
   }
 }
@@ -289,9 +287,9 @@ match_count_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ 
   }
 }
 
-template <int kVec>
-cudaError_t launch(const void* a, const void* b, void* out, int64_t batch, int64_t w,
-                   int64_t t1, int64_t t2, cudaStream_t stream) {
+cudaError_t launch_aligned(const void* a, const void* b, void* out, int64_t batch, int64_t w,
+                           int64_t t1, int64_t t2, cudaStream_t stream) {
+  constexpr int kVec = 4;
   const int64_t threads = (t1 * t2 + kVec - 1) / kVec;
   const int64_t blocks = (threads + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
@@ -363,29 +361,27 @@ cudaError_t launch_count(const void* a, const void* b, const void* mask, void* c
 // the same stream (before it, the pass left the unaligned product at 1021 x
 // 16411, which re-reads b from L2, 1-2 % slower on an H100); `scratch` is
 // int64 [batch, 2] of any content, zeroed here when the pass needs it.  mode: 0 =
-// aligned walk with 4-byte stores, 1 = aligned (K1; needs t1*t2 % 4 == 0
-// and a 16-byte-aligned out), 2 = unaligned, 3 = b-streamed.  Modes 2 and 3,
-// and the count, take t1, t2 < 2^32.  A product with no chunks launches
-// nothing and leaves count as it was.  Launches ceil(batch / 65535) grids of
+// aligned (K1; needs t1*t2 % 4 == 0 and a 16-byte-aligned out), 1 =
+// unaligned, 2 = b-streamed.  Modes 1 and 2, and the count, take t1, t2 <
+// 2^32.  A product with no chunks launches nothing and leaves count as it was.  Launches ceil(batch / 65535) grids of
 // the pass and as many of the product.  Returns cudaGetLastError().
 extern "C" int csgn_mul(const void* a, const void* b, const void* mask, void* out,
                         void* count, void* scratch, int64_t batch, int64_t w, int64_t t1,
                         int64_t t2, int64_t mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode < 0 || mode > 3) return cudaErrorInvalidValue;
-  if (mode == 1 && ((t1 * t2) % 4 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)) {
+  if (mode < 0 || mode > 2) return cudaErrorInvalidValue;
+  if (mode == 0 && ((t1 * t2) % 4 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)) {
     return cudaErrorInvalidValue;
   }
-  if ((mode >= 2 || mask != nullptr) && (t1 > 0xffffffffll || t2 > 0xffffffffll)) {
+  if ((mode >= 1 || mask != nullptr) && (t1 > 0xffffffffll || t2 > 0xffffffffll)) {
     return cudaErrorInvalidValue;
   }
   if (mask != nullptr && (count == nullptr || scratch == nullptr)) return cudaErrorInvalidValue;
   if (batch <= 0 || w <= 0 || t1 <= 0 || t2 <= 0) return cudaSuccess;
   cudaError_t err;
   switch (mode) {
-    case 0: err = launch<1>(a, b, out, batch, w, t1, t2, s); break;
-    case 1: err = launch<4>(a, b, out, batch, w, t1, t2, s); break;
-    case 2: err = launch_ragged<false>(a, b, out, batch, w, t1, t2, s); break;
+    case 0: err = launch_aligned(a, b, out, batch, w, t1, t2, s); break;
+    case 1: err = launch_ragged<false>(a, b, out, batch, w, t1, t2, s); break;
     default: err = launch_ragged<true>(a, b, out, batch, w, t1, t2, s); break;
   }
   if (err != cudaSuccess || mask == nullptr) return err;

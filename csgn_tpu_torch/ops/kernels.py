@@ -137,10 +137,8 @@ def _counted(name: str, words: torch.Tensor) -> str:
 # b = 20 MiB and the streamed one took 22 % less time at 40 MiB.
 B_STREAM_BYTES = 25 << 20
 
-# Mode -> csgn_mul's mode code.  "vec1" (the aligned walk with 4-byte stores,
-# what an unaligned product took before the unaligned mode) is never picked;
-# it stays reachable through `_mul_cuda` only to be timed against.
-_MODE_CODES = {"vec1": 0, "aligned": 1, "unaligned": 2, "tiled": 3}
+# Mode -> csgn_mul's mode code.
+_MODE_CODES = {"aligned": 0, "unaligned": 1, "tiled": 2}
 
 
 def mul_mode(w: int, t1: int, t2: int, base_aligned: bool) -> str:
@@ -161,10 +159,9 @@ def mul_mode(w: int, t1: int, t2: int, base_aligned: bool) -> str:
     return "unaligned"
 
 
-def _mul_cuda(name: str, a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor | None,
-              mode: str | None = None):
-    """Launch csrc/mul.cu in `mode` (default: `mul_mode`'s pick), under the
-    span ``launch.<name>``."""
+def _mul_cuda(name: str, a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor | None):
+    """Launch csrc/mul.cu in `mul_mode`'s mode, under the span
+    ``launch.<name>``."""
     metrics = op_metrics()
     with metrics.span(f"launch.{name}"):
         *lead, w, t1 = a.shape
@@ -175,8 +172,7 @@ def _mul_cuda(name: str, a: torch.Tensor, b: torch.Tensor, mask: torch.Tensor | 
             alloc = torch.empty if out.numel() else torch.zeros
             count = alloc(lead, dtype=torch.int64, device=a.device)
         if out.numel():
-            if mode is None:
-                mode = mul_mode(w, t1, t2, out.data_ptr() % 16 == 0)
+            mode = mul_mode(w, t1, t2, out.data_ptr() % 16 == 0)
             batch = lead[0] if lead else 1
             if mask is not None:
                 scratch = torch.empty((batch, 2), dtype=torch.int64, device=a.device)

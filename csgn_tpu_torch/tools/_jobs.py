@@ -1,7 +1,7 @@
 """Jobs of ranks for the port's programs (`csgn_tpu_torch.examples`, `tools`).
 
   * `job(device)` — the process group a program runs in: the one the caller
-    already joined (under ``torchrun``, or inside ``chip_smoke.py``), or else
+    already joined (under ``torchrun``, or in a test's job), or else
     a job of one rank over a ``file://`` store in a temporary directory,
     NCCL on a CUDA device and gloo on the CPU (`parallel.initialize`), which
     is destroyed on exit.

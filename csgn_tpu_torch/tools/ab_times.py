@@ -1,6 +1,6 @@
 """Kernel times for comparing two trees of the port on one card, in turns.
 
-    PYTHONPATH=<tree> python3 csgn_tpu_torch/tools/ab_times.py {encrypt,benes,benes-wide,benes-lanes,routes,muldec}
+    PYTHONPATH=<tree> python3 csgn_tpu_torch/tools/ab_times.py {encrypt,benes,benes-wide,benes-lanes,muldec}
 
 times the kernels of the csgn_tpu_torch package found first on the path
 (the tree's), through the public wrappers, and prints one JSON line.  Run it
@@ -24,13 +24,6 @@ after one untimed call (CUDA events), three runs a kernel:
     the paths forced that the tree has for that width (``--forced``), and
     its operation bound (`network_ops` over 132 SMs x 64 INT32 lanes at the
     maximum SM clock);
-  * ``routes``: two multiply routes of the JAX package's TPU backend that
-    the port does not take, each in turns with the canonical mode it would
-    replace at Context(1247, 16): the swapped (j-major) operands at the
-    unaligned 17 x (2^19 + 1), where b streams (both forms), and the pad
-    route (zero chunks appended to one operand, `pad_route`, then the
-    aligned mode) at 4099 x 37 and 151,663 x 111 against the unaligned
-    mode;
   * ``muldec``: the fused multiply+decrypt (`mul_decrypt`) in turns with
     `mul_chunks` at the bulk cells' shapes, 4096 x 4096, 1021 x 16411,
     151,663 x 111 and 16 x 2^19, at Context(1247, 16), on operands whose
@@ -174,54 +167,6 @@ def benes_lanes_times(dev, forced) -> dict:
     return out
 
 
-def pad_route(t1: int, t2: int) -> tuple[int, int]:
-    """``(zpad_a, zpad_b)``: the zero chunks to append to one operand so that
-    (t1 + zpad_a) * (t2 + zpad_b) % 4 == 0, on the operand whose copy (read
-    and write) and extra product chunks move fewer words."""
-    za = next(z for z in range(4) if ((t1 + z) * t2) % 4 == 0)
-    zb = next(z for z in range(4) if (t1 * (t2 + z)) % 4 == 0)
-    cost_a = 2 * (t1 + za) + za * t2
-    cost_b = 2 * (t2 + zb) + t1 * zb
-    return (za, 0) if cost_a < cost_b else (0, zb)
-
-
-def route_times(dev) -> dict:
-    ctx = Context(1247, 16)
-    w = ctx.words32
-    m = SecretKey.generate(ctx, rng.key(7), dev).mask_words
-    pad = lambda x, z: torch.nn.functional.pad(x, (0, z)) if z else x  # noqa: E731
-
-    def turns(fns: dict, xs) -> dict:   # three runs each, in turns
-        out = {name: [] for name in fns}
-        for _ in range(3):
-            for name, fn in fns.items():
-                out[name].append(run_ms(fn, xs))
-        return out
-
-    t1, t2 = 17, (1 << 19) + 1
-    xs = list(zip(_words(ctx, t1, 5, dev), _words(ctx, t2, 5, dev)))
-    out = {f"swap_{t1}x{t2}": {
-        "modes": {"swapped": kernels.mul_mode(w, t2, t1, True),
-                  "canonical": kernels.mul_mode(w, t1, t2, True)},
-        **turns({"swapped": lambda p: kernels.mul_chunks(p[1], p[0]),
-                 "canonical": lambda p: kernels.mul_chunks(p[0], p[1]),
-                 "swapped_count": lambda p: kernels.mul_decrypt(p[1], p[0], m),
-                 "canonical_count": lambda p: kernels.mul_decrypt(p[0], p[1], m)}, xs)}}
-    del xs
-    for t1, t2 in ((4099, 37), (151663, 111)):
-        za, zb = pad_route(t1, t2)
-        if not (kernels.mul_mode(w, t1, t2, True) == "unaligned"
-                and kernels.mul_mode(w, t1 + za, t2 + zb, True) == "aligned"):
-            raise RuntimeError(f"the pad route at {t1}x{t2} is not unaligned -> aligned")
-        xs = list(zip(_words(ctx, t1, 5, dev), _words(ctx, t2, 5, dev)))
-        out[f"pad_{t1}x{t2}"] = {
-            "zpad_a": za, "zpad_b": zb, "extra_chunks": (t1 + za) * (t2 + zb) - t1 * t2,
-            **turns({"pad_route": lambda p: kernels.mul_chunks(pad(p[0], za), pad(p[1], zb)),
-                     "unaligned": lambda p: kernels.mul_chunks(p[0], p[1])}, xs)}
-        del xs
-    return out
-
-
 def muldec_times(dev) -> dict:
     ctx = Context(1247, 16)
     w = ctx.words32
@@ -252,14 +197,14 @@ def muldec_times(dev) -> dict:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("what", choices=("encrypt", "benes", "benes-wide", "benes-lanes",
-                                         "routes", "muldec"))
+                                         "muldec"))
     parser.add_argument("--forced", default="", help="benes-lanes: comma-separated paths to "
                         "time in turns with the routed one")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     fns = {"encrypt": encrypt_times, "benes": benes_times, "benes-wide": benes_wide_times,
            "benes-lanes": lambda d: benes_lanes_times(d, [p for p in args.forced.split(",") if p]),
-           "routes": route_times, "muldec": muldec_times}
+           "muldec": muldec_times}
     print(json.dumps({"package": csgn_tpu_torch.__file__, args.what: fns[args.what](dev)}))
 
 

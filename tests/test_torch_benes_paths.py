@@ -8,7 +8,7 @@ above.  The lane-group path's arithmetic is emulated here in numpy, lane by
 lane, on the masks `lane_masks` lays out, and held to the plain network of
 both packages; its tile swizzle is checked for distinct banks.  The
 operation count `network_ops` is what bounds the paths on the card
-(chip_smoke.py's bound column).  Tolerance: exact.
+(`tools/ab_times.py benes-lanes`' bound).  Tolerance: exact.
 """
 
 import functools

@@ -47,7 +47,7 @@ def test_import_pulls_in_no_jax():
         "csgn_tpu_torch.models.lookup, csgn_tpu_torch.cli, csgn_tpu_torch.config, "
         "csgn_tpu_torch.io, csgn_tpu_torch.utils.timing, csgn_tpu_torch.utils.checks, "
         "csgn_tpu_torch.tools.enc_stats, csgn_tpu_torch.tools.ab_times, "
-        "csgn_tpu_torch.tools.k7_split, csgn_tpu_torch.rng, csgn_tpu_torch.refcompat, "
+        "csgn_tpu_torch.rng, csgn_tpu_torch.refcompat, "
         "csgn_tpu_torch.parallel, csgn_tpu_torch.parallel.mesh, "
         "csgn_tpu_torch.parallel.multihost, csgn_tpu_torch.parallel.ops, "
         "csgn_tpu_torch.parallel.batch_ops, csgn_tpu_torch.parallel.dryrun; "
@@ -185,7 +185,8 @@ def test_programs_default_to_the_card():
     current CUDA device; without one it raises the "no CUDA device" error
     before any work (and before starting any rank)."""
     if torch.cuda.is_available():
-        pytest.skip("a GPU is present: chip_smoke.py phase 4f runs the programs on it")
+        pytest.skip("a GPU is present: tests/test_torch_cuda.py runs the programs on it "
+                    "(test_examples_on_card_equal_cpu and the tests after it)")
     code = (
         "import runpy, sys\n"
         f"for m in {PROGRAMS!r}:\n"

@@ -3,9 +3,9 @@ the port draws from it, against `jax.random` and `csgn_tpu` on the CPU.
 
 `rng.key`, `split`, `fold_in`, `bits`, `randint`, `uniform`, `bernoulli` and
 `permutation` against `jax.random` (partitionable threefry, the conftest's
-setting) over seeds and shapes; chip_smoke.py's table of JAX draws (which
-the card's machine, having no JAX, checks the port against) and its main
-path's key and words against JAX; `SecretKey.generate`,
+setting) over seeds and shapes; tests/torch_jax_draws.py's tables of JAX
+draws (which the card tests and chip_smoke.py, having no JAX, hold the port
+to) against JAX; `SecretKey.generate`,
 `Permutation.random` and the default-engine `encrypt_batch`, `encrypt` and
 `recrypt` against `csgn_tpu`, with the engine the argument selects; and the
 two sharded encrypts of a gloo job of 1 and 2 CPU processes against
@@ -13,7 +13,6 @@ two sharded encrypts of a gloo job of 1 and 2 CPU processes against
 """
 
 import hashlib
-import importlib.util
 import os
 import pathlib
 import subprocess
@@ -31,6 +30,8 @@ from csgn_tpu import parallel as jpar
 from csgn_tpu_torch import rng
 from csgn_tpu_torch.layout import words_to_numpy
 from csgn_tpu_torch.ops import encrypt_kernels as ek
+
+import torch_jax_draws as draws
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SEEDS = [0, 1, 2**31 - 1, -7]
@@ -119,21 +120,13 @@ def test_key_arguments_are_checked():
 
 
 # ---------------------------------------------------------------------------
-# chip_smoke.py's JAX constants
+# tests/torch_jax_draws.py's JAX constants
 # ---------------------------------------------------------------------------
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("_chip_smoke", REPO / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def test_chip_smoke_rng_table_is_jax_random():
-    """The table phase 3 holds the port's rng to on the card's machine."""
-    smoke = _chip_smoke()
-    k = jax.random.key(smoke.SEED)
+    """The table the main path's card test holds the port's rng to."""
+    k = jax.random.key(draws.SEED)
     want = {
         "key_data": _data(k)[0],
         "split": _data(jax.random.split(k, 3)),
@@ -145,36 +138,32 @@ def test_chip_smoke_rng_table_is_jax_random():
         "permutation_16": np.asarray(jax.random.permutation(k, 16)).tolist(),
         "permutation_1247_head": np.asarray(jax.random.permutation(k, 1247))[:12].tolist(),
     }
-    assert smoke.RNG_VECTORS == want
-    assert smoke.rng_vectors(smoke.SEED) == want
+    assert draws.RNG_VECTORS == want
+    assert draws.rng_vectors(draws.SEED) == want
 
 
 def test_chip_smoke_main_path_key_and_words_are_jax():
-    """Phase 4's secret key and the two encrypt batches' words (sha-256),
-    from JAX's CLI-demo derivation at Context(1247, 16)."""
-    smoke = _chip_smoke()
+    """The main path's secret key and its two encrypt batches' words
+    (sha-256), from JAX's CLI-demo derivation at Context(1247, 16)."""
     ctx = J.Context(1247, 16)
-    keys = jax.random.split(jax.random.key(smoke.SEED), 4)
+    keys = jax.random.split(jax.random.key(draws.SEED), 4)
     sk = J.SecretKey.generate(ctx, keys[0])
-    assert sk.indices.tolist() == smoke.MAIN_KEY_INDICES
-    draws = np.random.default_rng(smoke.SEED)
-    for key, want in zip(keys[1:3], smoke.MAIN_WORDS_SHA256):
-        bits = smoke.odd_bits(draws, smoke.MAIN_T)
+    assert sk.indices.tolist() == draws.MAIN_KEY_INDICES
+    for key, bits, want in zip(keys[1:3], draws.main_bits(), draws.MAIN_WORDS_SHA256):
         words = np.asarray(sk.encrypt_batch(jnp.asarray(bits.astype(np.uint8)), key))
         assert hashlib.sha256(np.ascontiguousarray(words).tobytes()).hexdigest()[:32] == want
 
 
 def test_chip_smoke_program_draws_are_jax():
-    """Phase 4f's voting and auction draws at the examples' default seed 0."""
-    smoke = _chip_smoke()
+    """The voting and auction draws of the examples at their default seed 0."""
     _, _, k_votes = jax.random.split(jax.random.key(0), 3)
-    assert int(np.asarray(jax.random.bernoulli(k_votes, 0.9, (smoke.MAIN_T,))).sum()) == \
-        smoke.VOTING_YES
+    assert int(np.asarray(jax.random.bernoulli(k_votes, 0.9, (draws.MAIN_T,))).sum()) == \
+        draws.VOTING_YES
     _, _, k_bids = jax.random.split(jax.random.key(0), 3)
-    draws = np.random.default_rng(int(jax.random.randint(k_bids, (), 0, 2**31 - 1)))
-    bids = draws.integers(0, 1 << 16, size=8)
-    reserve = int(draws.integers(0, 1 << 16))
-    assert (reserve, [int(b > reserve) for b in bids]) == smoke.AUCTION
+    bid_draws = np.random.default_rng(int(jax.random.randint(k_bids, (), 0, 2**31 - 1)))
+    bids = bid_draws.integers(0, 1 << 16, size=8)
+    reserve = int(bid_draws.integers(0, 1 << 16))
+    assert (reserve, [int(b > reserve) for b in bids]) == draws.AUCTION
 
 
 # ---------------------------------------------------------------------------
