@@ -55,6 +55,26 @@ def _read_bit(parity: torch.Tensor) -> int:
         return int(parity)
 
 
+def _upload_async(device: torch.device, arrays: tuple) -> tuple[torch.Tensor, ...]:
+    """int32 arrays as tensors on the CUDA `device`, in one copy that does not
+    wait for the stream (counted ``key.upload.async``).
+
+    The arrays go into one block of pinned host memory, each from a 16-byte
+    boundary, and the block reaches the device by one non-blocking copy,
+    ordered on the current stream; the tensors are slices of its device
+    copy.  The block comes from torch's caching host allocator, which
+    records the copy's event and reuses the block only after it has landed.
+    """
+    starts = np.cumsum([0] + [-(-len(a) // 4) * 4 for a in arrays])
+    host = torch.empty(int(starts[-1]), dtype=torch.int32, pin_memory=True)
+    buf = host.numpy()
+    for s, a in zip(starts, arrays):
+        buf[s:s + len(a)] = a
+    words = host.to(device, non_blocking=True)
+    op_metrics().count("key.upload.async")
+    return tuple(words[s:s + len(a)] for s, a in zip(starts, arrays))
+
+
 def _engine_for(rng, engine: str | None) -> str:
     """The engine an encrypt's randomness selects: an `rng.Key` runs
     "threefry", an integer seed "counter" unless "philox" is asked for; an
@@ -80,7 +100,9 @@ class SecretKey:
 
     def __init__(self, ctx: Context, indices: np.ndarray, device=None):
         """Key over `indices` on `device`: None is the current CUDA device (it
-        raises where there is none), ``"cpu"`` the CPU."""
+        raises where there is none), ``"cpu"`` the CPU.  On a CUDA device the
+        key's words go up without waiting for the stream (`_upload_async`);
+        elsewhere by plain copies (counted ``key.upload.blocking``)."""
         device = resolve_device(device)
         indices = np.asarray(indices, dtype=np.int32)
         if indices.shape != (ctx.d,):
@@ -94,9 +116,13 @@ class SecretKey:
         self.indices.setflags(write=False)
         self.device = device
         self._mask = layout.bit_positions_to_mask(indices, ctx.n)
-        self._mask_t = layout.words_from_numpy(self._mask, self.device)
-        self._idx_t = torch.from_numpy(indices.copy()).to(self.device)
-        self._valid_t = layout.words_from_numpy(ctx.valid_mask, self.device)
+        arrays = (self._mask.view(np.int32), ctx.valid_mask.view(np.int32), indices)
+        if device.type == "cuda":
+            self._mask_t, self._valid_t, self._idx_t = _upload_async(device, arrays)
+        else:
+            op_metrics().count("key.upload.blocking")
+            self._mask_t, self._valid_t, self._idx_t = (
+                torch.from_numpy(a.copy()).to(device) for a in arrays)
 
     # -- constructors -------------------------------------------------------
 
@@ -378,8 +404,10 @@ class SecretKey:
         staged (K8 then K3) as the JAX package keeps it (see
         `ops.dispatch.permute_decrypt`).  By the transform identity the
         result equals ``self.decrypt(ciphertext)``.  The order tag and pad
-        chunks carry over.  The rotated key's build and copies are the span
-        ``key.apply_permutation``, before the op's own span.
+        chunks carry over.  The rotated key's build is the span
+        ``key.apply_permutation``, before the op's own span.  On a CUDA
+        device nothing before the bit's readback waits for the stream: the
+        key's upload, K8 and K3 queue behind whatever the caller launched.
         """
         self._check(ciphertext)
         if p.n != self.ctx.n:

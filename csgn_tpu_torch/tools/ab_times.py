@@ -1,6 +1,6 @@
 """Kernel times for comparing two trees of the port on one card, in turns.
 
-    PYTHONPATH=<tree> python3 csgn_tpu_torch/tools/ab_times.py {encrypt,benes,benes-wide,benes-lanes,muldec}
+    PYTHONPATH=<tree> python3 csgn_tpu_torch/tools/ab_times.py {encrypt,benes,benes-wide,benes-lanes,muldec,rekey}
 
 times the kernels of the csgn_tpu_torch package found first on the path
 (the tree's), through the public wrappers, and prints one JSON line.  Run it
@@ -30,7 +30,14 @@ after one untimed call (CUDA events), three runs a kernel:
     every chunk matches the key (the count reads every nonzero mask row of
     a and b) and, for the fused op, on random words; with each shape's mode,
     byte bound (operands read and product written once over 3.35 TB/s) and
-    the launches of one fused call by ``LAUNCHES`` key.
+    the launches of one fused call by ``LAUNCHES`` key;
+  * ``rekey``: the re-key op of the ``rekey-4096`` cell, ``a * b`` then
+    `SecretKey.permute_and_decrypt` to one of four readers and the bit read
+    back, at 4096 x 4096 and Context(1247, 16): host wall ms an op (the
+    bit's readback syncs each op), three runs of 40 ops over four operand
+    pairs, then one run with the program's spans on: the µs an op of
+    ``key.apply_permutation`` and of ``key.permute_and_decrypt`` less its
+    ``key.readback``, and the window's ``key.upload.*`` counts.
 
 It needs an NVIDIA GPU.
 """
@@ -40,14 +47,16 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
 
 import csgn_tpu_torch
-from csgn_tpu_torch import Context, Permutation, SecretKey, rng
+from csgn_tpu_torch import Ciphertext, Context, Permutation, SecretKey, rng
 from csgn_tpu_torch.ops import benes_kernels, encrypt_kernels, kernels
 from csgn_tpu_torch.ops import permute_benes as pb
+from csgn_tpu_torch.utils.metrics import op_metrics
 
 
 def run_ms(fn, inputs) -> float:
@@ -194,17 +203,53 @@ def muldec_times(dev) -> dict:
     return out
 
 
+def rekey_times(dev) -> dict:
+    ctx = Context(1247, 16)
+    sk = SecretKey.generate(ctx, rng.key(22), dev)
+    pairs = [(Ciphertext(x, ctx), Ciphertext(y, ctx))
+             for x, y in zip(_words(ctx, 4096, 4, dev), _words(ctx, 4096, 4, dev))]
+    readers = [Permutation.random(ctx, rng.key(2200 + r)) for r in range(4)]
+
+    def ops(count):
+        for i in range(count):
+            a, b = pairs[i % 4]
+            _, bit = sk.permute_and_decrypt(a * b, readers[i % 4])
+            int(bit)
+
+    ops(8)  # the plans, their device copies, the library
+    out = {"op_ms": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops(40)
+        out["op_ms"].append(1e3 * (time.perf_counter() - t0) / 40)
+    metrics = op_metrics()
+    metrics.reset()
+    with metrics.recording():
+        ops(40)
+    spans = metrics.spans()
+    waits = sum(s.seconds for s in spans if s.name == "key.readback")
+    out["apply_permutation_us"] = 1e6 * sum(
+        s.seconds for s in spans if s.name == "key.apply_permutation") / 40
+    out["permute_and_decrypt_less_readback_us"] = 1e6 * (sum(
+        s.seconds for s in spans if s.name == "key.permute_and_decrypt") - waits) / 40
+    out["readback_us"] = 1e6 * waits / 40
+    out["uploads"] = {k: v["calls"] for k, v in metrics.snapshot().items()
+                      if k.startswith("key.upload")}
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("what", choices=("encrypt", "benes", "benes-wide", "benes-lanes",
-                                         "muldec"))
+                                         "muldec", "rekey"))
     parser.add_argument("--forced", default="", help="benes-lanes: comma-separated paths to "
                         "time in turns with the routed one")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     fns = {"encrypt": encrypt_times, "benes": benes_times, "benes-wide": benes_wide_times,
            "benes-lanes": lambda d: benes_lanes_times(d, [p for p in args.forced.split(",") if p]),
-           "muldec": muldec_times}
+           "muldec": muldec_times, "rekey": rekey_times}
     print(json.dumps({"package": csgn_tpu_torch.__file__, args.what: fns[args.what](dev)}))
 
 

@@ -6,8 +6,10 @@ observability target).
 mul_and_decrypt`, the batched and sharded forms, the executor's groups)
 records its calls, chunks in/out and payload bytes with `record()`.  Route
 choices are bare counters (`count()`, once per call): ``dispatch.<op>.<cuda|
-plain>`` (`ops.dispatch`) and ``<wrapper>.<mode>`` (the multiply's modes,
-`ops.kernels`) — read them as "which route served this call".
+plain>`` (`ops.dispatch`), ``<wrapper>.<mode>`` (the multiply's modes,
+`ops.kernels`) and ``key.upload.<async|blocking>`` (a `SecretKey`'s build:
+one non-blocking copy from pinned memory on a CUDA device, plain copies
+elsewhere) — read them as "which route served this call".
 
 **Spans**, off by default.  With recording on (`enable()` / `disable()`, or
 the `recording()` context), `span(name)` keeps, for the block it wraps, the
@@ -36,8 +38,9 @@ The program's spans:
     ``sharded.*``), ``key.readback`` around the ``int(parity)`` of
     `SecretKey.decrypt`, `SecretKey.mul_and_decrypt` and
     `SecretKey.permute_and_decrypt`, ``key.apply_permutation`` around the
-    rotated key's build and copies in `SecretKey.permute_and_decrypt` (before
-    its op span), and ``perm.plan`` around a Beneš plan's build in
+    rotated key's build in `SecretKey.permute_and_decrypt` (before its op
+    span; on a CUDA device its upload is enqueued, not waited for), and
+    ``perm.plan`` around a Beneš plan's build in
     `Permutation.benes_plan` (a cache miss, also counted as
     ``perm.plan_builds``);
   * kernels: ``launch.<wrapper>`` around each wrapper's CUDA body (mode

@@ -27,9 +27,10 @@ import torch
 
 from csgn_tpu_torch import Ciphertext, CiphertextBatch, Context, Permutation, SecretKey, rng
 from csgn_tpu_torch.layout import words_from_numpy, words_to_numpy
-from csgn_tpu_torch.ops import benes_kernels, encrypt_kernels, kernels
+from csgn_tpu_torch.ops import benes_kernels, dispatch, encrypt_kernels, kernels
 from csgn_tpu_torch.ops import core
 from csgn_tpu_torch.ops import permute_benes as pb
+from csgn_tpu_torch.utils.metrics import op_metrics
 from portbench.reference import rekey
 
 import torch_jax_draws as draws
@@ -167,8 +168,6 @@ def test_main_path_at_full_size_draws_what_jax_draws(dev):
     are JAX's key and words (tests/torch_jax_draws.py), as are the port's
     rng draws; then the decrypts, one counter-engine batch (K4), the fused
     4096 x 4096 product on the canonical aligned route, ``*`` and ``+``."""
-    from csgn_tpu_torch.utils.metrics import op_metrics
-
     assert draws.rng_vectors(draws.SEED) == draws.RNG_VECTORS
     keys = rng.split(rng.key(draws.SEED), 4)
     bits1, bits2 = draws.main_bits()
@@ -336,6 +335,62 @@ def test_rotation_path_at_full_size(dev):
         assert torch.equal(rotated.wt[i], core.permute_chunks(grown.wt[i],
                                                               torch.tensor(perms[i].perm), CTX.n))
     assert np.array_equal(psk.decrypt_batch(grown.apply_permutation(p)).cpu().numpy(), want)
+
+
+def _uploads():
+    return op_metrics().snapshot().get("key.upload.async", {}).get("calls", 0)
+
+
+def test_rotated_key_and_its_decrypt_queue_behind_k1(dev):
+    """With 4096² K1s in flight, the rotated key's build and the enqueue of
+    K8 and K3 (`dispatch.permute_decrypt`) synchronise nothing with the
+    card (torch's sync debug mode raises on any wait) and return before the
+    stream drains; the key's words came up by one non-blocking copy
+    (``key.upload.async``) and equal a CPU key's; the rotation and bit are
+    right."""
+    sk = _key(CTX, 22, dev)
+    a, b = _words(CTX, 4096, 1, dev), _words(CTX, 4096, 2, dev)
+    p = Permutation(np.random.default_rng(22).permutation(CTX.n))
+    plan = p.benes_plan()
+    dispatch.permute_decrypt(a, plan, sk.mask_words)  # the plan on the card, the library loaded
+    torch.cuda.synchronize()
+    uploads = _uploads()
+    for _ in range(4):
+        prod = kernels.mul_chunks(a, b)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        psk = sk.apply_permutation(p)
+        out, parity = dispatch.permute_decrypt(prod, plan, psk.mask_words)
+        drained = torch.cuda.current_stream().query()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert not drained
+    assert _uploads() == uploads + 1
+    cpu = SecretKey(CTX, sk.indices, "cpu").apply_permutation(p)
+    np.testing.assert_array_equal(psk.indices, cpu.indices)
+    for got, want in zip(psk.encrypt_operands, cpu.encrypt_operands):
+        assert got.device == prod.device and torch.equal(got.cpu(), want)
+    assert torch.equal(out, benes_kernels.apply_benes(prod, plan))
+    assert int(parity) == int(kernels.decrypt_parity(prod, sk.mask_words))
+
+
+def test_key_uploads_behind_long_kernels_keep_their_words(dev):
+    """256 keys built back to back, each upload queued behind a K1 of 4096 ×
+    1024 chunks: every key reads back its own words, so no pinned block was
+    reused before its copy landed."""
+    a, b = _words(CTX, 4096, 3, dev), _words(CTX, 1024, 4, dev)
+    gen = np.random.default_rng(256)
+    uploads = _uploads()
+    keys = []
+    for _ in range(256):
+        kernels.mul_chunks(a, b)
+        keys.append(SecretKey(CTX, gen.choice(CTX.n, CTX.d, replace=False), dev))
+    assert _uploads() == uploads + 256
+    for k in keys:
+        cpu = SecretKey(CTX, k.indices, "cpu")
+        for got, want in zip(k.encrypt_operands, cpu.encrypt_operands):
+            assert torch.equal(got.cpu(), want)
 
 
 def _perm_words(n, lead, chunks, seed, dev):
@@ -1600,7 +1655,7 @@ def test_streamed_product_is_canonical_and_jmajor_canonicalizes(dev, t1, t2):
     decrypts to the canonical parity, and keeps its tag right through
     permute (decrypted under the rotated key, and by `permute_and_decrypt`)
     and add."""
-    from csgn_tpu_torch.ops import dispatch, order
+    from csgn_tpu_torch.ops import order
 
     sk = _key(CTX, t1, dev)
     a = Ciphertext(_words(CTX, t1, 1, dev, sk.mask, forced=range(0, t1, 3)), CTX)
@@ -1635,8 +1690,6 @@ def _force_jmajor(monkeypatch):
     """Every `*`, `mul_and_decrypt` and batched form takes the j-major route
     (the canonical kernel on the swapped operands), as
     tests/test_torch_order.py forces it."""
-    from csgn_tpu_torch.ops import dispatch
-
     def mul(a, b):
         return dispatch.mul_chunks_jmajor(a, b), True, 0, 0
 

@@ -1,8 +1,9 @@
 """The re-key path — a product, then `SecretKey.permute_and_decrypt` to a
 reader's permuted key — against the benchmark's plain reference
 (portbench/reference/rekey.py), bit for bit; the reference against
-csgn_tpu's permutation oracle; the ``rekey-4096`` cell through the harness
-on the CPU; the path's spans and plan counter; and the counts and readers
+csgn_tpu's permutation oracle; the rotated key against csgn_tpu's; the
+``rekey-4096`` cell through the harness on the CPU; the path's spans, plan
+counter and key-upload counters; and the counts and readers
 of the cell's per-layer metrics.  Operands are fresh chunks of seeded
 random bits (`portbench.inputs.fresh_chunks`), with an odd number of ones on
 each side so that the product decrypts to 1.  Tolerance: 0 everywhere."""
@@ -215,6 +216,43 @@ def test_spans_only_while_recording(rec):
     assert [s.name for s in spans if s.parent == op][-1] == "key.readback"
     assert spans[names.index("perm.plan")].parent == op  # the plan is built on first use
     assert all(s.end >= s.start for s in spans)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 + 11, SEED])
+def test_key_transform_matches_the_jax_package(seed):
+    """`apply_permutation`'s rotated key — ascending indices, mask and the
+    key's device words — is the JAX package's for seeded keys and π."""
+    positions = key_positions(seed, N, D)
+    perm = host_rng(seed, "test-perm").permutation(N)
+    psk = T.SecretKey(T.Context(N, D), positions, "cpu").apply_permutation(T.Permutation(perm))
+    jpsk = J.SecretKey(J.Context(N, D), positions).apply_permutation(J.Permutation(perm))
+    np.testing.assert_array_equal(psk.indices, np.asarray(jpsk.indices))
+    assert np.all(np.diff(psk.indices) > 0)
+    np.testing.assert_array_equal(psk.mask, np.asarray(jpsk.mask))
+    idx, mask, valid = psk.encrypt_operands
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jpsk.indices))
+    np.testing.assert_array_equal(words_to_numpy(mask), np.asarray(jpsk.mask))
+    np.testing.assert_array_equal(words_to_numpy(valid), J.Context(N, D).valid_mask)
+
+
+def _builds(rec):
+    snap = rec.snapshot()
+    return tuple(snap.get(f"key.upload.{kind}", {}).get("calls", 0)
+                 for kind in ("blocking", "async"))
+
+
+@pytest.mark.parametrize("build,keys", [
+    (lambda ctx, pos, p: T.SecretKey(ctx, pos, "cpu"), 1),
+    (lambda ctx, pos, p: T.SecretKey.generate(ctx, T.rng.key(3), "cpu"), 1),
+    (lambda ctx, pos, p: T.SecretKey(ctx, pos, "cpu").apply_permutation(p), 2),
+    (lambda ctx, pos, p: T.SecretKey(ctx, pos, "cpu").permute_and_decrypt(
+        T.Ciphertext(_operands(8, 8, SEED)[1], ctx), p), 2),
+], ids=["init", "generate", "apply_permutation", "permute_and_decrypt"])
+def test_a_cpu_key_counts_blocking_uploads(rec, build, keys):
+    """One ``key.upload.blocking`` a key built on the CPU (the key, then
+    its rotation), and no ``key.upload.async`` (the card's route)."""
+    build(T.Context(N, D), key_positions(SEED, N, D), T.Permutation(_perm("random", SEED)))
+    assert _builds(rec) == (keys, 0)
 
 
 def test_plan_builds_count_cache_misses_only(rec):
