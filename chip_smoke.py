@@ -18,7 +18,9 @@ entry, sharded, programs, bench, order), in one pytest session, with:
     (each marked test also fails unless its path's kernels counted
     launches);
   * for each ``LAUNCHES`` key, the inputs of the largest call that counted
-    under it kept on the host.
+    under it kept on the host; a Beneš wrapper's calls are kept by path
+    instead, under ``<wrapper>.<path>`` (the counter `_benes_cuda` keeps),
+    since its register, lane-group and wide kernels differ.
 
 Then each key's kernel and plain version are timed in turns on those
 inputs (CUDA events; plain, kernel, library, then back) beside the least
@@ -27,14 +29,16 @@ operations over 132 SMs x 64 INT32 lanes at the maximum SM clock); the
 library is, for the multiply and the write anchor only, the one PyTorch
 call that does the same job.  The last
 lines are ``{"kernels": [...]}`` (per key: shape, ms, plain_ms, bound_ms,
-bound_by, library_ms, launches, launches_by_path, checked) and
-``{"ok": ...}``; the exit code is pytest's, or 1 if a kernel and its plain
-version disagreed.
+bound_by, library_ms, launches and launches_by_path of the calls kept
+under it, checked) and ``{"ok": ...}``, which also gives the run's peak of
+device memory allocated and of host memory resident; the exit code is
+pytest's, or 1 if a kernel and its plain version disagreed.
 """
 
 from __future__ import annotations
 
 import json
+import resource
 import subprocess
 import sys
 
@@ -146,18 +150,30 @@ def _same(got, want) -> bool:
         g.shape == w.shape and torch.equal(g, w.to(g.device, g.dtype)) for g, w in zip(got, want))
 
 
+def _rows(name: str, args, launched: list[str]) -> list[tuple[str, str]]:
+    """The keys a call is kept under, each with the LAUNCHES key whose count
+    it reads: the LAUNCHES keys it counted, but a Beneš wrapper's call under
+    ``<wrapper>.<path>`` alone, with the wrapper's count."""
+    if name.startswith("apply_benes"):
+        return [(f"{name}.{bk.benes_path(args[1].words_pad)}", name)]
+    return [(k, k) for k in launched]
+
+
 class Smoke:
     """The pytest plugin and the wrappers' record: launches by path, calls
-    checked and failed by wrapper, the largest call by LAUNCHES key."""
+    checked and failed by wrapper, the largest call and the launches of the
+    calls by key (`_rows`)."""
 
     def __init__(self):
         self.by_path: dict[str, dict[str, int]] = {}
         self.by_test: dict[str, dict[str, int]] = {}
+        self.by_row: dict[str, dict[str, int]] = {}
         self.checked: dict[str, int] = {}
         self.wrong: list[str] = []
         self.largest: dict[str, tuple] = {}
         self._inside = False            # in a plain version: its calls go unchecked
         self.test = ""
+        self.path = ""
 
     def install(self) -> None:
         for module, name, plain in WRAPPERS:
@@ -188,10 +204,14 @@ class Smoke:
             self.checked[name] = self.checked.get(name, 0) + 1
             if not ok:
                 self.wrong.append(f"{self.test}: {name} {[tuple(t.shape) for t in _tensors(args)]}")
-            nbytes = _bytes(name, args, out)
-            for key in (k for k in LAUNCHES if LAUNCHES[k] != before[k]):
+            nbytes, host = _bytes(name, args, out), None
+            launched = [k for k in LAUNCHES if LAUNCHES[k] != before[k]]
+            for key, counted in _rows(name, args, launched):
+                row = self.by_row.setdefault(key, {})
+                row[self.path] = row.get(self.path, 0) + LAUNCHES[counted] - before[counted]
                 if nbytes > self.largest.get(key, (0,))[0]:
-                    self.largest[key] = (nbytes, name, orig, plain, _moved(args, "cpu"), kwargs,
+                    host = _moved(args, "cpu") if host is None else host   # one copy a call
+                    self.largest[key] = (nbytes, name, orig, plain, host, kwargs,
                                          _ops(name, args))
             return out
         return run
@@ -203,7 +223,7 @@ class Smoke:
 
     @pytest.hookimpl(hookwrapper=True)
     def pytest_runtest_call(self, item):
-        self.test = item.nodeid
+        self.test, self.path = item.nodeid, item.obj.path
         for key in LAUNCHES:
             LAUNCHES[key] = 0
         yield
@@ -247,8 +267,8 @@ def _times(smoke: Smoke, int_ops_per_s: float) -> list[dict]:
             "ms": sum(ms["kernel"]) / 2, "plain_ms": sum(ms["plain"]) / 2,
             "library_ms": sum(ms["library"]) / 2 if "library" in ms else None,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "ops",
-            "launches": sum(p.get(key, 0) for p in smoke.by_path.values()),
-            "launches_by_path": {path: p.get(key, 0) for path, p in smoke.by_path.items()},
+            "launches": sum(smoke.by_row[key].values()),
+            "launches_by_path": smoke.by_row[key],
             "checked": smoke.checked.get(name, 0),
         })
         del args
@@ -285,7 +305,10 @@ def main() -> int:
               + f"; {card}, {limit_w} W")
     print(json.dumps({"kernels": rows}))
     ok = rc == 0 and not smoke.wrong
-    print(json.dumps({"ok": ok, "pytest_exit": int(rc), "device": card, "power_limit_w": limit_w}))
+    print(json.dumps({"ok": ok, "pytest_exit": int(rc), "device": card, "power_limit_w": limit_w,
+                      "device_peak_bytes": torch.cuda.max_memory_allocated(),
+                      "host_peak_rss_bytes":
+                          resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}))
     return 0 if ok else int(rc) or 1
 
 

@@ -14,7 +14,9 @@ and `apply_benes_decrypt_plain`.  Routing is by the tensors' device, as in
 `ops.kernels`: a CPU tensor goes to the plain version, a CUDA tensor
 launches the kernel or raises.  Each launch adds one to
 ``LAUNCHES[<wrapper name>]``, and its CUDA body is the span
-``launch.<wrapper name>`` while spans are recorded (`utils.metrics`).
+``launch.<wrapper name>`` while spans are recorded (`utils.metrics`), and
+each call that launches counts ``<wrapper name>.<path>`` there (the path
+below: ``apply_benes.lanes``, ``apply_benes_batch.register``, ...).
 
 csrc/benes.cu and csrc/benes_lanes.cu have three paths, chosen by the
 network's width WP = n_pad / 32 (`benes_path`), all counted under the same
@@ -176,6 +178,7 @@ def _benes_cuda(name: str, words: torch.Tensor, plan, plan_stride: int,
             LAUNCHES[name] += grids(batch)
             if path in _PATH_LAUNCHES:
                 LAUNCHES[_PATH_LAUNCHES[path]] += grids(batch)
+            op_metrics().count(f"{name}.{path}")
         return out, count
 
 

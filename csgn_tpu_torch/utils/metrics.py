@@ -7,9 +7,11 @@ mul_and_decrypt`, the batched and sharded forms, the executor's groups)
 records its calls, chunks in/out and payload bytes with `record()`.  Route
 choices are bare counters (`count()`, once per call): ``dispatch.<op>.<cuda|
 plain>`` (`ops.dispatch`), ``<wrapper>.<mode>`` (the multiply's modes,
-`ops.kernels`) and ``key.upload.<async|blocking>`` (a `SecretKey`'s build:
-one non-blocking copy from pinned memory on a CUDA device, plain copies
-elsewhere) — read them as "which route served this call".
+`ops.kernels`), ``<wrapper>.<path>`` (the Beneš kernels' paths, ``register``,
+``lanes``, ``wide`` or ``global``, `ops.benes_kernels`) and
+``key.upload.<async|blocking>`` (a `SecretKey`'s build: one non-blocking
+copy from pinned memory on a CUDA device, plain copies elsewhere) — read
+them as "which route served this call".
 
 **Spans**, off by default.  With recording on (`enable()` / `disable()`, or
 the `recording()` context), `span(name)` keeps, for the block it wraps, the

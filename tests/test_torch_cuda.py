@@ -31,7 +31,8 @@ from csgn_tpu_torch.ops import benes_kernels, dispatch, encrypt_kernels, kernels
 from csgn_tpu_torch.ops import core
 from csgn_tpu_torch.ops import permute_benes as pb
 from csgn_tpu_torch.utils.metrics import op_metrics
-from portbench.reference import rekey
+from portbench.inputs import fresh_chunks, key_positions
+from portbench.reference import csgn, rekey
 
 import torch_jax_draws as draws
 
@@ -517,25 +518,68 @@ def test_benes_register_path_refuses_wide_networks(dev):
         _benes_on("register", "apply_benes", x, plan)
 
 
-@pytest.mark.parametrize("chunks", [1 << 22, (1 << 22) + 37, 1 << 24, (1 << 24) + 37])
-def test_benes_k8_at_millions_of_chunks_matches_the_reference(dev, chunks):
-    """K8's register path at n = 1247 through `Ciphertext.apply_permutation`,
-    up to a 4096 x 4096 product's 2^24 chunks and with a partial last block,
-    against the benchmark's plain gather (portbench/reference/rekey.py),
-    compared in blocks of 2^20 chunks."""
+N4096 = Context(4096, 32)  # csgn4096-rekey's context: W = 128, a 128-word network
+
+
+@pytest.mark.parametrize("ctx,chunks", [(CTX, 1 << 22), (CTX, (1 << 22) + 37), (CTX, 1 << 24),
+                                        (CTX, (1 << 24) + 37), (N4096, 1 << 24),
+                                        (N4096, (1 << 24) + 37)],
+                         ids=lambda v: f"{v.n}x{v.d}" if isinstance(v, Context) else str(v))
+@_path("rotation", lambda ctx, **_: ("apply_benes", *(("benes_lanes",) if ctx is N4096 else ())))
+def test_benes_k8_at_millions_of_chunks_matches_the_reference(dev, ctx, chunks):
+    """K8 through `Ciphertext.apply_permutation`, on its register path at
+    n = 1247 and its lane-group path at n = 4096 (W = 128: 2^31 words at
+    2^24 chunks, past int32's element count), up to a 4096 x 4096 product's
+    2^24 chunks and with a partial last block, against the benchmark's plain
+    gather (portbench/reference/rekey.py), compared in blocks of 2^20
+    chunks."""
     gen = torch.Generator(device=dev).manual_seed(chunks)
-    x = torch.randint(-2**31, 2**31, (CTX.words32, chunks), dtype=torch.int32, device=dev,
+    x = torch.randint(-2**31, 2**31, (ctx.words32, chunks), dtype=torch.int32, device=dev,
                       generator=gen)
-    x &= words_from_numpy(CTX.valid_mask, dev)[:, None]
-    perm = np.random.default_rng(chunks).permutation(CTX.n)
+    x &= words_from_numpy(ctx.valid_mask, dev)[:, None]
+    perm = np.random.default_rng(chunks).permutation(ctx.n)
     p = Permutation(perm)
-    assert benes_kernels.benes_path(p.benes_plan().words_pad) == "register"
+    path = "lanes" if ctx is N4096 else "register"
+    assert benes_kernels.benes_path(p.benes_plan().words_pad) == path
     launches = benes_kernels.LAUNCHES["apply_benes"]
-    got = Ciphertext(x, CTX).apply_permutation(p).wt
+    got = Ciphertext(x, ctx).apply_permutation(p).wt
     assert benes_kernels.LAUNCHES["apply_benes"] > launches
     step = 1 << 20
     for c0 in range(0, chunks, step):
         assert torch.equal(got[:, c0:c0 + step], rekey.rotate(x[:, c0:c0 + step], perm)), c0
+
+
+@_path("rotation", ("mul_chunks", "apply_benes", "benes_lanes", "decrypt_parity"))
+def test_rekey_op_at_n4096_matches_the_reference(dev):
+    """The ``rekey-4096-n4096`` cell's op once at its size: a 4096 x 4096
+    product of fresh chunks at Context(4096, 32) (2^24 chunks of W = 128)
+    re-keyed by `SecretKey.permute_and_decrypt` on the lane-group path, then
+    K3 under the rotated key, against the benchmark's reference: every
+    rotated word and the bit Dec_k(a * b) (`rekey.check_rotated`)."""
+    seed = 2**33 + 23
+    positions = key_positions(seed, N4096.n, N4096.d)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    operands = []
+    for _ in range(2):
+        bits = torch.randint(0, 2, (4096,), device=dev, generator=gen)
+        bits[0] ^= 1 - int(bits.sum()) % 2             # odd: the product decrypts to 1
+        operands.append(fresh_chunks(bits, positions, N4096.n, gen).T.contiguous())
+    a, b = operands
+    perm = np.random.default_rng(seed).permutation(N4096.n)
+    p = Permutation(perm)
+    sk = SecretKey(N4096, positions, dev)
+    p.benes_plan()
+    op_metrics().reset()
+    rot, bit = sk.permute_and_decrypt(Ciphertext(a, N4096) * Ciphertext(b, N4096), p)
+    routes = {k: v["calls"] for k, v in op_metrics().snapshot().items()
+              if k.startswith(("apply_benes.", "mul_chunks."))}
+    assert routes == {"apply_benes.lanes": 1, "mul_chunks.aligned": 1}, routes
+    assert rot.is_canonical and tuple(rot.wt.shape) == (N4096.words32, 1 << 24)
+    mask = torch.from_numpy(csgn.mask_words(positions, N4096.n)).to(dev)
+    assert rekey.check_rotated(rot.wt, a, b, perm, mask) == (0, 1)
+    assert int(bit) == 1
+    np.testing.assert_array_equal(sk.apply_permutation(p).indices,
+                                  rekey.rotated_positions(positions, perm))
 
 
 @pytest.mark.parametrize("n,k,chunks", [(1247, 3, 60001), (1247, 64, 1000), (1247, 700, 129),
