@@ -153,9 +153,15 @@ def _same(got, want) -> bool:
 def _rows(name: str, args, launched: list[str]) -> list[tuple[str, str]]:
     """The keys a call is kept under, each with the LAUNCHES key whose count
     it reads: the LAUNCHES keys it counted, but a Beneš wrapper's call under
-    ``<wrapper>.<path>`` alone, with the wrapper's count."""
+    ``<wrapper>.<path>`` alone (``<wrapper>.lanes.ring`` for the lane path's
+    ring form), with the wrapper's count."""
     if name.startswith("apply_benes"):
-        return [(f"{name}.{bk.benes_path(args[1].words_pad)}", name)]
+        words, plan = args[0], args[1]
+        path = bk.benes_path(plan.words_pad)
+        if path == "lanes" and bk.lanes_form(plan.words_pad, words.shape[-1],
+                                             words.data_ptr() % 16 == 0) == "ring":
+            path = "lanes.ring"
+        return [(f"{name}.{path}", name)]
     return [(k, k) for k in launched]
 
 

@@ -476,7 +476,8 @@ cudaError_t launch_wide(const Args& a, uint32_t* scratch, bool force_global) {
 // [stages, 2] of (delta, live rows).  With `key` [w] non-null, also adds
 // element b's match count into the zeroed int64 count[b].  path 0 is the
 // register path (wp a power of two <= 64), 1 the lane-group path (wp in
-// 128..2048, w <= wp, masks in the lane layout), 2 the wide path (its tile,
+// 128..2048, w <= wp, masks in the lane layout), 4 its ring form (wp = 128,
+// c % 4 == 0, x and out 16-byte aligned), 2 the wide path (its tile,
 // or the global scratch where no tile fits), 3 the wide path on its global
 // scratch.  `scratch` (paths 2 and 3 without a tile) holds batch * ceil(c /
 // 32) * 32 * wp words.  Launches ceil(batch / 65535) grids.  Returns
@@ -494,7 +495,7 @@ extern "C" int csgn_benes(const void* x, const void* masks, const void* sched, c
   const bool counted = key != nullptr;
   uint32_t* scr = static_cast<uint32_t*>(scratch);
   if (path == 0) return counted ? launch_register_wp<true>(a) : launch_register_wp<false>(a);
-  if (path == 1) return launch_lanes(a);
+  if (path == 1 || path == 4) return launch_lanes(a, path == 4);
   if (path == 2 || path == 3) {
     return counted ? launch_wide<true>(a, scr, path == 3) : launch_wide<false>(a, scr, path == 3);
   }

@@ -164,7 +164,9 @@ cudaError_t launch_slices(Kernel kernel, const Args& a, int64_t chunks, int thre
 }
 
 // The lane-group path (benes_lanes.cu): a.wp in {128, ..., 2048}, a.masks in
-// the lane layout (ops/benes_kernels.py `lane_masks`).
-cudaError_t launch_lanes(const Args& a);
+// the lane layout (ops/benes_kernels.py `lane_masks`); `ring` takes the ring
+// form, which needs wp = 128, c % 4 == 0 and x, out 16-byte aligned
+// (ops/benes_kernels.py `lanes_form`).
+cudaError_t launch_lanes(const Args& a, bool ring);
 
 }  // namespace benes

@@ -30,7 +30,11 @@ network's width WP = n_pad / 32 (`benes_path`), all counted under the same
   * "lanes" up to `LANES_WORDS_PAD` (2048, n <= 65536): a group of WP /
     `LANE_WORDS` lanes of a warp keeps the column in registers,
     `LANE_WORDS` rows a lane, the plan's masks in the layout of
-    `lane_masks`; its launches also count under ``LAUNCHES["benes_lanes"]``;
+    `lane_masks`; its launches also count under ``LAUNCHES["benes_lanes"]``.
+    It has two forms (`lanes_form`): "ring" at WP = 128 on 16-byte aligned
+    rows (a persistent grid whose blocks stage the plan once and move each
+    tile in and out by one TMA tensor copy; counted ``<wrapper>.lanes.ring``
+    too) and "tile" elsewhere (one block a tile);
   * "wide" above, at any n: a block's threads split each stage's rows over
     a tile of up to 32 chunk columns (four columns a thread), the masks read
     from global memory; the tile is in shared memory while one column fits
@@ -65,6 +69,7 @@ __all__ = [
     "apply_benes_decrypt_plain",
     "benes_path",
     "lane_masks",
+    "lanes_form",
     "network_deltas",
     "network_ops",
     "LANE_WORDS",
@@ -89,8 +94,9 @@ REGISTER_WORDS_PAD = 64
 LANE_WORDS = 64
 LANES_WORDS_PAD = 2048
 WIDE_TILE_WORDS_PAD = 32768
+RING_WORDS_PAD = 128
 _WIDE_GLOBAL_CHUNKS = 32
-_PATH_CODES = {"register": 0, "lanes": 1, "wide": 2, "global": 3}
+_PATH_CODES = {"register": 0, "lanes": 1, "wide": 2, "global": 3, "ring": 4}
 _PATH_LAUNCHES = {"lanes": "benes_lanes", "wide": "benes_wide", "global": "benes_wide"}
 
 
@@ -101,6 +107,15 @@ def benes_path(words_pad: int) -> str:
     if words_pad <= REGISTER_WORDS_PAD:
         return "register"
     return "lanes" if words_pad <= LANES_WORDS_PAD else "wide"
+
+
+def lanes_form(words_pad: int, chunks: int, aligned: bool = True) -> str:
+    """The lane-group path's form for a network of `words_pad` words over
+    rows of `chunks` words: "ring" where csrc/benes_lanes.cu's ring form
+    takes it (WP = 128, every row start on a 16-byte boundary: chunks % 4 ==
+    0 and `aligned` base addresses of the words and the output), else
+    "tile"."""
+    return "ring" if words_pad == RING_WORDS_PAD and chunks % 4 == 0 and aligned else "tile"
 
 
 def lane_masks(plan, device) -> torch.Tensor:
@@ -164,6 +179,10 @@ def _benes_cuda(name: str, words: torch.Tensor, plan, plan_stride: int,
                                                      device=words.device)
         if words.numel():
             batch = lead[0] if lead else 1
+            form = None
+            if path == "lanes":
+                aligned = words.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+                form = lanes_form(plan.words_pad, c, aligned)
             scratch = None
             if path == "global" or (path == "wide" and plan.words_pad > WIDE_TILE_WORDS_PAD):
                 blocks = -(-c // _WIDE_GLOBAL_CHUNKS)
@@ -173,12 +192,15 @@ def _benes_cuda(name: str, words: torch.Tensor, plan, plan_stride: int,
                 check(name, lib().csgn_benes(
                     ptr(words), ptr(masks), ptr(sched), ptr(key), ptr(out), ptr(count),
                     ptr(scratch), batch, w, c, plan.words_pad, len(plan.deltas),
-                    min(w, plan.words_pad), plan_stride, _PATH_CODES[path], stream_of(words)
+                    min(w, plan.words_pad), plan_stride,
+                    _PATH_CODES["ring" if form == "ring" else path], stream_of(words)
                 ))
             LAUNCHES[name] += grids(batch)
             if path in _PATH_LAUNCHES:
                 LAUNCHES[_PATH_LAUNCHES[path]] += grids(batch)
             op_metrics().count(f"{name}.{path}")
+            if form == "ring":
+                op_metrics().count(f"{name}.lanes.ring")
         return out, count
 
 

@@ -19,9 +19,12 @@ after one untimed call (CUDA events), three runs a kernel:
     product's 2^24 chunks, a run cycling four plans;
   * ``benes-wide``: K8 and K12 on the wide path at n = 20000 over 2^14
     chunks, and K8 with its global-scratch form forced;
-  * ``benes-lanes``: K8 as routed at n in {2049, 4095, 8191, 16383} over
-    2^20 chunks and at n in {20000, 40000} over 2^14, each in turns with
-    the paths forced that the tree has for that width (``--forced``), and
+  * ``benes-lanes``: K8 as routed over a 4096 x 4096 product's 2^24 chunks
+    at n = 4096 (the ``rekey-4096-n4096`` cell's shape), a run cycling four
+    plans, beside the same words through the identity plan (every stage
+    off: the copy alone); then at n in {2049, 4095, 8191, 16383} over 2^20
+    chunks and at n in {20000, 40000} over 2^14, each in turns with the
+    paths forced that the tree has for that width (``--forced``); each with
     its operation bound (`network_ops` over 132 SMs x 64 INT32 lanes at the
     maximum SM clock);
   * ``muldec``: the fused multiply+decrypt (`mul_decrypt`) in turns with
@@ -149,15 +152,24 @@ def benes_lanes_times(dev, forced) -> dict:
     mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                                 "--format=csv,noheader,nounits"], capture_output=True, text=True,
                                check=True, timeout=60).stdout.split()[0])
-    out = {}
+    peak = 132 * 64 * mhz * 1e6
+    n, chunks = 4096, 1 << 24
+    plans = [Permutation.random(n, rng.key(2400 + i)).benes_plan() for i in range(4)]
+    ident = Permutation.identity(n).benes_plan()
+    x = _words(Context(n, 32), chunks, 1, dev)[0]
+    k8 = lambda q: benes_kernels.apply_benes(x, q)  # noqa: E731
+    out = {"4096x2^24": {
+        "bound_ms": max(benes_kernels.network_ops(q) for q in plans) * chunks / peak * 1e3,
+        "routed": [run_ms(k8, plans) for _ in range(3)],
+        "zero_stage": [run_ms(k8, [ident] * 4) for _ in range(3)]}}
+    del x
     for n, chunks in ((2049, 1 << 20), (4095, 1 << 20), (8191, 1 << 20), (16383, 1 << 20),
                       (20000, 1 << 14), (40000, 1 << 14)):
         ctx = Context(n, 16)
         plan = Permutation.random(n, rng.key(n)).benes_plan()
         xs = _words(ctx, chunks, 5, dev)
-        ops = benes_kernels.network_ops(plan) * chunks  # the operation bound, 132 SMs x 64 lanes
         row = {"path": benes_kernels.benes_path(plan.words_pad),
-               "bound_ms": ops / (132 * 64 * mhz * 1e6) * 1e3,
+               "bound_ms": benes_kernels.network_ops(plan) * chunks / peak * 1e3,
                "routed": [run_ms(lambda x: benes_kernels.apply_benes(x, plan), xs)]}
         for path in forced:
             try:

@@ -66,6 +66,17 @@ def test_path_limits():
         assert benes_kernels.benes_path(wp) == "wide"
 
 
+@pytest.mark.parametrize("wp", [128, 256, 512, 1024, 2048])
+@pytest.mark.parametrize("chunks", [1, 4, 37, 1028, 1 << 24, (1 << 24) + 37])
+def test_lanes_form_by_shape(wp, chunks):
+    """The lane-group path's ring form takes WP = 128 over rows of whole
+    16-byte quads (chunks % 4 == 0) at aligned addresses; every other
+    width, a ragged chunk count or an unaligned base keeps the tile form."""
+    want = "ring" if wp == 128 and chunks % 4 == 0 else "tile"
+    assert benes_kernels.lanes_form(wp, chunks) == want
+    assert benes_kernels.lanes_form(wp, chunks, aligned=False) == "tile"
+
+
 REGISTER_NS = [20, 33, 100, 257, 600, 1247, 2048]
 
 
@@ -344,3 +355,4 @@ def test_lane_tile_swizzle_is_conflict_free(k, wp, threads):
     for e0 in range(0, wp * cb, 32 * 7):
         e = e0 + lane
         assert len(set((_tile_at(e // cb, e % cb, lanes, cb, g, shift) % 32).tolist())) == 32
+

@@ -529,10 +529,10 @@ N4096 = Context(4096, 32)  # csgn4096-rekey's context: W = 128, a 128-word netwo
 def test_benes_k8_at_millions_of_chunks_matches_the_reference(dev, ctx, chunks):
     """K8 through `Ciphertext.apply_permutation`, on its register path at
     n = 1247 and its lane-group path at n = 4096 (W = 128: 2^31 words at
-    2^24 chunks, past int32's element count), up to a 4096 x 4096 product's
-    2^24 chunks and with a partial last block, against the benchmark's plain
-    gather (portbench/reference/rekey.py), compared in blocks of 2^20
-    chunks."""
+    2^24 chunks, past int32's element count; the ring form at 2^24, the
+    tile form at 2^24 + 37), up to a 4096 x 4096 product's 2^24 chunks and
+    with a partial last block, against the benchmark's plain gather
+    (portbench/reference/rekey.py), compared in blocks of 2^20 chunks."""
     gen = torch.Generator(device=dev).manual_seed(chunks)
     x = torch.randint(-2**31, 2**31, (ctx.words32, chunks), dtype=torch.int32, device=dev,
                       generator=gen)
@@ -542,8 +542,11 @@ def test_benes_k8_at_millions_of_chunks_matches_the_reference(dev, ctx, chunks):
     path = "lanes" if ctx is N4096 else "register"
     assert benes_kernels.benes_path(p.benes_plan().words_pad) == path
     launches = benes_kernels.LAUNCHES["apply_benes"]
+    op_metrics().reset()
     got = Ciphertext(x, ctx).apply_permutation(p).wt
     assert benes_kernels.LAUNCHES["apply_benes"] > launches
+    rings = op_metrics().snapshot().get("apply_benes.lanes.ring", {"calls": 0})["calls"]
+    assert rings == (1 if path == "lanes" and chunks % 4 == 0 else 0)
     step = 1 << 20
     for c0 in range(0, chunks, step):
         assert torch.equal(got[:, c0:c0 + step], rekey.rotate(x[:, c0:c0 + step], perm)), c0
@@ -553,7 +556,8 @@ def test_benes_k8_at_millions_of_chunks_matches_the_reference(dev, ctx, chunks):
 def test_rekey_op_at_n4096_matches_the_reference(dev):
     """The ``rekey-4096-n4096`` cell's op once at its size: a 4096 x 4096
     product of fresh chunks at Context(4096, 32) (2^24 chunks of W = 128)
-    re-keyed by `SecretKey.permute_and_decrypt` on the lane-group path, then
+    re-keyed by `SecretKey.permute_and_decrypt` on the lane-group path's
+    ring form, then
     K3 under the rotated key, against the benchmark's reference: every
     rotated word and the bit Dec_k(a * b) (`rekey.check_rotated`)."""
     seed = 2**33 + 23
@@ -573,7 +577,8 @@ def test_rekey_op_at_n4096_matches_the_reference(dev):
     rot, bit = sk.permute_and_decrypt(Ciphertext(a, N4096) * Ciphertext(b, N4096), p)
     routes = {k: v["calls"] for k, v in op_metrics().snapshot().items()
               if k.startswith(("apply_benes.", "mul_chunks."))}
-    assert routes == {"apply_benes.lanes": 1, "mul_chunks.aligned": 1}, routes
+    assert routes == {"apply_benes.lanes": 1, "apply_benes.lanes.ring": 1,
+                      "mul_chunks.aligned": 1}, routes
     assert rot.is_canonical and tuple(rot.wt.shape) == (N4096.words32, 1 << 24)
     mask = torch.from_numpy(csgn.mask_words(positions, N4096.n)).to(dev)
     assert rekey.check_rotated(rot.wt, a, b, perm, mask) == (0, 1)
@@ -927,10 +932,11 @@ def test_count_pass_past_the_grid_limit_with_several_blocks(dev):
 
 # Kernel families by a part of their mangled names, with their number of
 # instantiations: the Beneš register path (WP = 1, 2, ..., 64, with and
-# without the count), lane-group path and wide path, the fill, the Philox
+# without the count), lane-group path (the tile form's ten, the ring form's
+# two) and wide path, the fill, the Philox
 # tile (16- and 4-byte row stores), K14, the count pass, and the product
 # kernels: aligned, and unaligned or b-streamed, each 2-D and batched.
-KERNEL_FAMILIES = [("benes_register_kernel", 14), ("benes_lanes_kernel", 10),
+KERNEL_FAMILIES = [("benes_register_kernel", 14), ("benes_lanes_kernel", 12),
                    ("benes_wide_kernel", 6), ("fill_kernel", 1), ("philox_tile_kernel", 2),
                    ("JaxThreefry", 1), ("match_count_kernel", 1), ("mul_kernelI", 2),
                    ("mul_ragged_kernelI", 4)]
@@ -1340,6 +1346,82 @@ def test_benes_lanes_zero_stage_plans(dev, n):
                            benes_kernels.apply_benes_plain(x, p.benes_plan()))
     assert torch.equal(_benes_on("lanes", "apply_benes", x,
                                  Permutation.identity(n).benes_plan())[0], x)
+
+
+def _ring_calls():
+    """Calls of each Beneš wrapper that took the lane path's ring form."""
+    return sum(v["calls"] for k, v in op_metrics().snapshot().items()
+               if k.endswith(".lanes.ring"))
+
+
+@pytest.mark.parametrize("n", [2049, 4095, 4096])
+@pytest.mark.parametrize("chunks", [4, 1028, (1 << 20) + 4, 1025])
+def test_benes_lanes_ring_form_k8_k9_k12_match_plain(dev, n, chunks):
+    """K8, K12 (count and parity) and K9 (two plans) at WP = 128 (W = 65 of
+    128 rows at n = 2049): the ring form where chunks % 4 == 0, the tile
+    form at 1025; the ring counter counts exactly the ring form's calls."""
+    ring = benes_kernels.lanes_form(128, chunks) == "ring"
+    assert ring == (chunks % 4 == 0)
+    op_metrics().reset()
+    launched = _k8_k9_k12_on(None, n, chunks, dev)
+    assert launched["benes_lanes"] == 4 and launched["benes_wide"] == 0
+    assert _ring_calls() == (4 if ring else 0)
+
+
+@pytest.mark.parametrize("chunks", [1028, (1 << 20) + 4])
+def test_benes_lanes_ring_form_batch_of_three_plans(dev, chunks):
+    """K9 on the ring form: three elements at n = 4096, each on its own
+    plan, against the plain batch and each element's own K8."""
+    n = 4096
+    _, rng, xb = _perm_words(n, (3,), chunks, chunks + 3, dev)
+    perms = [Permutation(rng.permutation(n)) for _ in range(3)]
+    stacked = pb.stack_plans([q.benes_plan() for q in perms])
+    op_metrics().reset()
+    got = benes_kernels.apply_benes_batch(xb, stacked)
+    assert _ring_calls() == 1
+    assert torch.equal(got, benes_kernels.apply_benes_batch_plain(xb, stacked))
+    for i in range(3):
+        assert torch.equal(got[i], benes_kernels.apply_benes(xb[i].contiguous(),
+                                                             perms[i].benes_plan()))
+
+
+@pytest.mark.parametrize("n", [2049, 4096])
+def test_benes_lanes_ring_form_zero_stage_plans(dev, n):
+    """The identity (every stage off) and a transposition (most stages off)
+    on the ring form (300 chunks) and, for the same words, the tile form
+    (301)."""
+    _, _, x = _perm_words(n, (), 301, 6, dev)
+    swap = np.arange(n)
+    swap[3], swap[n - 7] = swap[n - 7], swap[3]
+    op_metrics().reset()
+    for cols in (x[:, :300].contiguous(), x):
+        for p in (Permutation.identity(n), Permutation(swap)):
+            assert torch.equal(benes_kernels.apply_benes(cols, p.benes_plan()),
+                               benes_kernels.apply_benes_plain(cols, p.benes_plan()))
+        assert torch.equal(benes_kernels.apply_benes(cols, Permutation.identity(n).benes_plan()),
+                           cols)
+    assert _ring_calls() == 3
+
+
+def test_benes_lanes_ring_form_takes_no_unaligned_words(dev):
+    """A contiguous view 4 bytes off a 16-byte boundary keeps the tile form
+    at WP = 128, and the register path never counts the ring."""
+    _, rng, src = _perm_words(4096, (), 1028, 8, dev)
+    plan = Permutation(rng.permutation(4096)).benes_plan()
+    flat = torch.empty(src.numel() + 1, dtype=torch.int32, device=dev)
+    view = flat[1:].view(src.shape)
+    view.copy_(src)
+    assert view.data_ptr() % 16 != 0
+    op_metrics().reset()
+    assert torch.equal(benes_kernels.apply_benes(view, plan),
+                       benes_kernels.apply_benes_plain(src, plan))
+    _, rng, small = _perm_words(1247, (), 1028, 8, dev)
+    low = Permutation(rng.permutation(1247)).benes_plan()
+    assert torch.equal(benes_kernels.apply_benes(small, low),
+                       benes_kernels.apply_benes_plain(small, low))
+    routes = {k: v["calls"] for k, v in op_metrics().snapshot().items()
+              if k.startswith("apply_benes.")}
+    assert routes == {"apply_benes.lanes": 1, "apply_benes.register": 1}, routes
 
 
 @pytest.mark.parametrize("n", WIDE_NS)
