@@ -7,8 +7,8 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It runs the tests of tests/test_torch_cuda.py that drive a public path at
-full size (those marked ``@_path(name, ...)``: main, rotation, circuit,
-entry, sharded, programs, bench, order), in one pytest session, with:
+full size (those marked ``@_path(name, ...)``: main, rotation, fleet,
+circuit, entry, sharded, programs, bench, order), in one pytest session, with:
 
   * every kernel wrapper (K1-K5, K7, K8/K9/K12, K13, K14) replaced, in every
     module of csgn_tpu_torch that holds it, by one that also runs the

@@ -189,13 +189,16 @@ class CiphertextBatch:
         schedule (same n), so they stack into one mask tensor
         (`ops.permute_benes.stack_plans`) and the kernel picks element i's
         masks by its batch index; chunk positions are untouched, so the
-        shared order tag carries over.
+        shared order tag carries over.  The stack and its masks' copy to
+        the device are the span ``perm.stack_plans`` (`utils.metrics`).
         """
         if len(perms) != self.batch:
             raise ValueError(f"need {self.batch} permutations, got {len(perms)}")
         if any(p.n != self.ctx.n for p in perms):
             raise ValueError(f"permutation length mismatch vs context n {self.ctx.n}")
-        stacked = pb.stack_plans([p.benes_plan() for p in perms])
+        with op_metrics().span("perm.stack_plans"):
+            stacked = pb.stack_plans([p.benes_plan() for p in perms])
+            pb.device_operands(stacked, self.device)
         with op_metrics().record(
             "batch.permute_multi", chunks_in=self.batch * self.chunks,
             chunks_out=self.batch * self.chunks,

@@ -15,7 +15,8 @@ operands (`device_operands`: the masks as int32, and the kernels' stage
 schedule) per device, so repeated rotations under one `BenesPlan` copy
 nothing to the card.  A `StackedPlans` caches the same way, but
 `CiphertextBatch.apply_permutations` stacks, and so copies, its plans anew
-on every call.
+on every call (the span ``perm.stack_plans``; each copy counts under
+``perm.plan_upload_bytes``).
 
 `apply_benes`, `apply_benes_batch` and `apply_benes_decrypt_plain` are the
 plain versions of K8, K9 and K12 (`ops.benes_kernels`): the CPU path, and
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from csgn_tpu_torch.ops import core
+from csgn_tpu_torch.utils.metrics import op_metrics
 
 __all__ = [
     "BenesPlan",
@@ -232,7 +234,9 @@ def _plan_static(plan, w: int):
 
 def device_operands(plan, device) -> tuple[torch.Tensor, torch.Tensor]:
     """``(masks, schedule)`` of a `BenesPlan` or `StackedPlans` on `device`,
-    copied once per device and cached on the plan.
+    copied once per device and cached on the plan.  Each copy (a cache
+    miss) counts under ``perm.plan_upload_bytes`` (`utils.metrics`), with
+    the bytes of both.
 
     masks: int32 view of the uint32 masks, ``[S, WP]`` or ``[k, S, WP]``.
     schedule: int32 ``[S, 2]`` of (delta, live rows), rows 0 for a stage
@@ -246,6 +250,7 @@ def device_operands(plan, device) -> tuple[torch.Tensor, torch.Tensor]:
                          dtype=np.int32).reshape(-1, 2)
         masks = np.ascontiguousarray(plan.masks, dtype=np.uint32).view(np.int32)
         ops = (torch.from_numpy(masks.copy()).to(device), torch.from_numpy(sched).to(device))
+        op_metrics().count("perm.plan_upload_bytes", bytes_moved=masks.nbytes + sched.nbytes)
         plan._device[key] = ops
     return ops
 

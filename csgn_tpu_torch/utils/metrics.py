@@ -44,7 +44,12 @@ The program's spans:
     span; on a CUDA device its upload is enqueued, not waited for), and
     ``perm.plan`` around a Beneš plan's build in
     `Permutation.benes_plan` (a cache miss, also counted as
-    ``perm.plan_builds``);
+    ``perm.plan_builds``), ``perm.stack_plans`` around the stack of a
+    fleet's plans and its masks' upload in
+    `CiphertextBatch.apply_permutations`, and the counter
+    ``perm.plan_upload_bytes`` (one call a plan's or stack's copy to a
+    device, a cache miss of `permute_benes.device_operands`; its
+    ``bytes_moved`` the masks' and schedule's bytes);
   * kernels: ``launch.<wrapper>`` around each wrapper's CUDA body (mode
     choice, output allocation, the ctypes launch, the ``LAUNCHES`` count).
 """
@@ -195,10 +200,12 @@ class OpMetrics:
         attrs = {"chunks_in": chunks_in, "chunks_out": chunks_out, "bytes_moved": bytes_moved}
         return _Span(self, op, None, attrs, s)
 
-    def count(self, op: str, n: int = 1) -> None:
+    def count(self, op: str, n: int = 1, bytes_moved: int = 0) -> None:
         """Bump a bare call counter (no span) — used for route choices, once
-        per call."""
-        self._stats[op].calls += n
+        per call, and for copies, whose bytes go to the op's ``bytes_moved``."""
+        s = self._stats[op]
+        s.calls += n
+        s.bytes_moved += bytes_moved
 
     def spans(self) -> list[Span]:
         """Every span recorded since the last `reset()`, in the order they

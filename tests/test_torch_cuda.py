@@ -25,14 +25,15 @@ import numpy as np
 import pytest
 import torch
 
-from csgn_tpu_torch import Ciphertext, CiphertextBatch, Context, Permutation, SecretKey, rng
+from csgn_tpu_torch import (BatchExecutor, Ciphertext, CiphertextBatch, Context, Permutation,
+                            SecretKey, rng)
 from csgn_tpu_torch.layout import words_from_numpy, words_to_numpy
 from csgn_tpu_torch.ops import benes_kernels, dispatch, encrypt_kernels, kernels
 from csgn_tpu_torch.ops import core
 from csgn_tpu_torch.ops import permute_benes as pb
 from csgn_tpu_torch.utils.metrics import op_metrics
-from portbench.inputs import fresh_chunks, key_positions
-from portbench.reference import csgn, rekey
+from portbench.inputs import fresh_chunks, host_rng, key_positions
+from portbench.reference import csgn, fleet, rekey
 
 import torch_jax_draws as draws
 
@@ -336,6 +337,49 @@ def test_rotation_path_at_full_size(dev):
         assert torch.equal(rotated.wt[i], core.permute_chunks(grown.wt[i],
                                                               torch.tensor(perms[i].perm), CTX.n))
     assert np.array_equal(psk.decrypt_batch(grown.apply_permutation(p)).cpu().numpy(), want)
+
+
+
+@_path("fleet", ("apply_benes_batch",))
+def test_fleet_route_at_full_size(dev):
+    """A key-rotation fleet at Context(1247, 16) through the public API, at
+    the ``rotate-fleet`` cell's size: 64 stored ciphertexts of 65,536 fresh
+    chunks, each re-keyed to its own reader by ``submit_permute`` on an
+    executor that holds no key, and one ``flush()``: one K9 call on the
+    register path, one stacked plan uploaded, and every request's words and
+    its bit under its reader's key the reference's (portbench/reference/
+    fleet.py), one request at a time."""
+    b, c = 64, 1 << 16
+    positions = key_positions(25, CTX.n, CTX.d)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    bits = torch.randint(0, 2, (b, c), device=dev, generator=gen)
+    store = fresh_chunks(bits, positions, CTX.n, gen).transpose(1, 2).contiguous()
+    del bits
+    perms = [host_rng(25, f"reader-{r}").permutation(CTX.n) for r in range(b)]
+    pis = [Permutation(p) for p in perms]
+    plans = [pi.benes_plan() for pi in pis]
+    ex = BatchExecutor(None)
+    before = op_metrics().snapshot()
+    futs = [ex.submit_permute(Ciphertext(store[i], CTX), pi) for i, pi in enumerate(pis)]
+    ex.flush()
+    out = [f.result() for f in futs]
+    torch.cuda.synchronize()
+    after = op_metrics().snapshot()
+
+    def grew(name, field="calls"):
+        return after.get(name, {}).get(field, 0) - before.get(name, {}).get(field, 0)
+
+    assert grew("apply_benes_batch.register") == 1 and grew("perm.plan_builds") == 0
+    stacked = pb.stack_plans(plans)
+    upload = stacked.masks.nbytes + 2 * 4 * len(stacked.deltas)
+    assert (grew("perm.plan_upload_bytes"), grew("perm.plan_upload_bytes", "bytes_moved")) \
+        == (1, upload) == (1, 64 * 5376 + 168)
+    parities = set()
+    for i in range(b):
+        assert out[i].is_canonical and out[i].wt.data_ptr() != store[i].data_ptr()
+        assert fleet.check(out[i].wt, store[i], perms[i], positions, CTX.n) == (0, 0), i
+        parities.add(fleet.parity(store[i], positions, CTX.n))
+    assert parities == {0, 1}
 
 
 def _uploads():
