@@ -50,6 +50,7 @@ from csgn_tpu_torch.ops import benes_kernels as bk
 from csgn_tpu_torch.ops import core
 from csgn_tpu_torch.ops import encrypt_kernels as ek
 from csgn_tpu_torch.ops import kernels
+from csgn_tpu_torch.ops import permute_benes as pb
 from csgn_tpu_torch.ops._build import LAUNCHES
 
 HBM_BYTES_PER_S = 3.35e12
@@ -77,6 +78,8 @@ WRAPPERS = [
     (kernels, "fill_anchor", kernels.fill_anchor_plain),
     (bk, "apply_benes", bk.apply_benes_plain),
     (bk, "apply_benes_batch", bk.apply_benes_batch_plain),
+    (bk, "apply_benes_requests",
+     lambda words, plans: torch.stack([bk.apply_benes_plain(t, p) for t, p in zip(words, plans)])),
     (bk, "apply_benes_decrypt", bk.apply_benes_decrypt_plain),
     (ek, "encrypt_bits_counter", ek.encrypt_bits_counter_plain),
     (ek, "encrypt_bits_philox", ek.encrypt_bits_philox_plain),
@@ -118,8 +121,10 @@ def _ops(wrapper: str, args) -> int:
     """Integer operations of a call, by the counts above (0: bytes bound it)."""
     if wrapper.startswith("apply_benes"):
         words, plan = args[0], args[1]
+        if wrapper == "apply_benes_requests":   # k requests [W, C], one plan each
+            words, plan = words[0], pb.stack_plans(plan)
         per_chunk = bk.network_ops(plan)
-        chunks = words.shape[-1] * (1 if wrapper == "apply_benes_batch"
+        chunks = words.shape[-1] * (1 if wrapper in ("apply_benes_batch", "apply_benes_requests")
                                     else words.numel() // words.shape[-1] // words.shape[-2])
         return (sum(per_chunk) if isinstance(per_chunk, list) else per_chunk) * chunks
     if wrapper == "philox_streams":
@@ -154,7 +159,10 @@ def _rows(name: str, args, launched: list[str]) -> list[tuple[str, str]]:
     """The keys a call is kept under, each with the LAUNCHES key whose count
     it reads: the LAUNCHES keys it counted, but a Beneš wrapper's call under
     ``<wrapper>.<path>`` alone (``<wrapper>.lanes.ring`` for the lane path's
-    ring form), with the wrapper's count."""
+    ring form), with the wrapper's count; K9's table form under
+    ``apply_benes_batch.table``, with ``apply_benes_batch``'s count."""
+    if name == "apply_benes_requests":
+        return [("apply_benes_batch.table", "apply_benes_batch")]
     if name.startswith("apply_benes"):
         words, plan = args[0], args[1]
         path = bk.benes_path(plan.words_pad)

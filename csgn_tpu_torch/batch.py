@@ -9,7 +9,9 @@ once for the whole fleet:
   * decrypt — per-element parity                   [B,W,C] -> bits[B]
     (`SecretKey.decrypt_batch`)
   * permute — one Beneš plan for every element (`apply_permutation`), or plan
-    i on element i (`apply_permutations`, the key-rotation fleet).
+    i on element i (`apply_permutations`, the key-rotation fleet; and
+    `permute_each`, the same on separate ciphertexts read where they are
+    stored, with no stack).
 
 Kernel strategy: the CUDA kernels take the batch dimension natively (the
 element comes from the grid), where the JAX package vmaps its Pallas
@@ -206,6 +208,38 @@ class CiphertextBatch:
         ):
             return CiphertextBatch(dispatch.permute_batched_multi(self.wt, stacked), self.ctx,
                                    self.logical, self.pad)
+
+    @classmethod
+    def permute_each(cls, cts: list[Ciphertext], perms: list[Permutation]) -> "CiphertextBatch":
+        """``CiphertextBatch(stack of cts).apply_permutations(perms)`` with no
+        stack: ciphertext i and the Beneš plan of ``perms[i]`` are read where
+        they are stored, ciphertext i permuted into element i of the result
+        (K9's table form, `dispatch.permute_requests`; on the register path
+        only, n <= 2048).  The ciphertexts share one context and physical
+        shape and one order tag: all canonical, or one tag object and pad,
+        which the result keeps.  Each plan's masks go to the device once and
+        stay (`permute_benes.table_operands`), under the span
+        ``perm.stack_plans``; counted as `apply_permutations`."""
+        if not cts or len(perms) != len(cts):
+            raise ValueError(f"need one permutation a ciphertext, got {len(perms)} for "
+                             f"{len(cts)}")
+        first = cts[0]
+        if any(c.ctx != first.ctx for c in cts):
+            raise ValueError("permute_each: ciphertext contexts differ")
+        if any(c.logical is not first.logical or c.pad != first.pad for c in cts):
+            raise ValueError("permute_each: ciphertexts must share one order tag")
+        if any(p.n != first.ctx.n for p in perms):
+            raise ValueError(f"permutation length mismatch vs context n {first.ctx.n}")
+        with op_metrics().span("perm.stack_plans"):
+            plans = [p.benes_plan() for p in perms]
+            pb.table_operands(plans, first.device)
+        b = len(cts)
+        with op_metrics().record(
+            "batch.permute_multi", chunks_in=b * first.chunks, chunks_out=b * first.chunks,
+            bytes_moved=2 * b * first.ctx.chunk_count_bytes(first.physical_chunks),
+        ):
+            return cls(dispatch.permute_requests([c.wt for c in cts], plans), first.ctx,
+                       first.logical, first.pad)
 
     # -- chunk order ------------------------------------------------------------
 

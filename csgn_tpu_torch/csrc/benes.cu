@@ -3,7 +3,9 @@
 //
 // Replaces csgn_tpu/ops/permute_benes.py:apply_benes_pallas (K8, one plan),
 // apply_benes_batch_pallas (K9, plan i on batch element i: plan_stride =
-// S*WP) and apply_benes_decrypt_pallas (K12, `kCount`).
+// S*WP; on the register path also on k tensors and k plans wherever they
+// are stored, through a table of their base pointers, `kTable`) and
+// apply_benes_decrypt_pallas (K12, `kCount`).
 //
 //   out bit i of every chunk = in bit perm[i]
 //   stage s, delta < 32:  t = (x ^ (x << d)) & m[r];  x ^= t ^ (t >> d)
@@ -149,9 +151,14 @@ __device__ __forceinline__ void in_word_fma(uint32_t (&col)[N], const uint32_t* 
   }
 }
 
-template <int WP, bool kCount>
+// kTable (K9 on requests and plans where they are stored): x and masks are
+// entries of a device table of pointers (`Source`), element b's words [w, c]
+// at x[b], read through the read-only path, and its plan's masks at
+// masks[b]; the output stays one [batch, w, c] tensor.  Without it x is the
+// batch's words [batch, w, c] and masks its plans, plan_stride words apart.
+template <int WP, bool kCount, bool kTable>
 __global__ void __launch_bounds__(kThreads, kRegisterBlocks)
-benes_register_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ masks,
+benes_register_kernel(Source<kTable> __restrict__ x, Source<kTable> __restrict__ masks,
                       const int32_t* __restrict__ sched, const uint32_t* __restrict__ key,
                       uint32_t* __restrict__ out, unsigned long long* __restrict__ count,
                       int64_t w, int64_t c, int stages, int w_net, int64_t plan_stride) {
@@ -160,17 +167,34 @@ benes_register_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict
   const bool active = j < c;  // inactive lanes run on zeros for the warp sum
   // The column's loads go out before the plan is staged, so the two wait
   // together; a row's address is the last one's plus c.
-  const uint32_t* src = x + b * w * c + j;
+  const uint32_t* src;
+  if constexpr (kTable) {
+    src = x[b] + j;
+  } else {
+    src = x + b * w * c + j;
+  }
   uint32_t col[WP];
   {
     const uint32_t* p = src;
 #pragma unroll
-    for (int r = 0; r < WP; ++r, p += c) col[r] = (active && r < w_net) ? *p : 0u;
+    for (int r = 0; r < WP; ++r, p += c) {
+      if constexpr (kTable) {
+        col[r] = (active && r < w_net) ? __ldg(p) : 0u;
+      } else {
+        col[r] = (active && r < w_net) ? *p : 0u;
+      }
+    }
   }
 
   extern __shared__ uint4 smem_reg[];  // 16-byte aligned for the mask quads
-  const Staged st = stage_operands(reinterpret_cast<uint32_t*>(smem_reg), masks + b * plan_stride,
-                                   sched, key, WP, stages, w, kCount);
+  const uint32_t* plan;
+  if constexpr (kTable) {
+    plan = masks[b];
+  } else {
+    plan = masks + b * plan_stride;
+  }
+  const Staged st = stage_operands(reinterpret_cast<uint32_t*>(smem_reg), plan, sched, key, WP,
+                                   stages, w, kCount);
   for (int s = 0; s < stages; ++s) {
     const int delta = st.sched[2 * s];
     const int rows = st.sched[2 * s + 1];
@@ -394,23 +418,24 @@ size_t operand_bytes(const Args& a, bool count) {
          sizeof(uint32_t);
 }
 
-template <int WP, bool kCount>
+template <int WP, bool kCount, bool kTable>
 cudaError_t launch_register(const Args& a) {
   const size_t smem = operand_bytes(a, kCount);
   if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  return launch_slices(benes_register_kernel<WP, kCount>, a, kThreads, kThreads, smem);
+  return launch_slices<kTable>(benes_register_kernel<WP, kCount, kTable>, a, kThreads, kThreads,
+                               smem);
 }
 
-template <bool kCount>
+template <bool kCount, bool kTable = false>
 cudaError_t launch_register_wp(const Args& a) {
   switch (a.wp) {
-    case 1: return launch_register<1, kCount>(a);
-    case 2: return launch_register<2, kCount>(a);
-    case 4: return launch_register<4, kCount>(a);
-    case 8: return launch_register<8, kCount>(a);
-    case 16: return launch_register<16, kCount>(a);
-    case 32: return launch_register<32, kCount>(a);
-    case kMaxRegisterWords: return launch_register<kMaxRegisterWords, kCount>(a);
+    case 1: return launch_register<1, kCount, kTable>(a);
+    case 2: return launch_register<2, kCount, kTable>(a);
+    case 4: return launch_register<4, kCount, kTable>(a);
+    case 8: return launch_register<8, kCount, kTable>(a);
+    case 16: return launch_register<16, kCount, kTable>(a);
+    case 32: return launch_register<32, kCount, kTable>(a);
+    case kMaxRegisterWords: return launch_register<kMaxRegisterWords, kCount, kTable>(a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -480,21 +505,28 @@ cudaError_t launch_wide(const Args& a, uint32_t* scratch, bool force_global) {
 // c % 4 == 0, x and out 16-byte aligned), 2 the wide path (its tile,
 // or the global scratch where no tile fits), 3 the wide path on its global
 // scratch.  `scratch` (paths 2 and 3 without a tile) holds batch * ceil(c /
-// 32) * 32 * wp words.  Launches ceil(batch / 65535) grids.  Returns
-// cudaGetLastError().
+// 32) * 32 * wp words.  path 5 is the register path's table form, without
+// the count: x is then a device table of 2 * batch pointers, element b's
+// words [w, c] at x[b] and its plan's masks [stages, wp] at x[batch + b]
+// (masks and plan_stride unused).  Launches ceil(batch / 65535) grids.
+// Returns cudaGetLastError().
 extern "C" int csgn_benes(const void* x, const void* masks, const void* sched, const void* key,
                           void* out, void* count, void* scratch, int64_t batch, int64_t w,
                           int64_t c, int64_t wp, int64_t stages, int64_t w_net,
                           int64_t plan_stride, int64_t path, void* stream) {
   using namespace benes;
   if (w_net > wp || w_net > w) return cudaErrorInvalidValue;
-  const Args a{static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(masks),
+  const bool table = path == 5;
+  const Args a{table ? nullptr : static_cast<const uint32_t*>(x),
+               static_cast<const uint32_t*>(masks),
                static_cast<const int32_t*>(sched), static_cast<const uint32_t*>(key),
                static_cast<uint32_t*>(out), static_cast<unsigned long long*>(count),
-               batch, w, c, wp, stages, w_net, plan_stride, static_cast<cudaStream_t>(stream)};
+               batch, w, c, wp, stages, w_net, plan_stride, static_cast<cudaStream_t>(stream),
+               table ? static_cast<const uint32_t* const*>(x) : nullptr};
   const bool counted = key != nullptr;
   uint32_t* scr = static_cast<uint32_t*>(scratch);
   if (path == 0) return counted ? launch_register_wp<true>(a) : launch_register_wp<false>(a);
+  if (table) return counted ? cudaErrorInvalidValue : launch_register_wp<false, true>(a);
   if (path == 1 || path == 4) return launch_lanes(a, path == 4);
   if (path == 2 || path == 3) {
     return counted ? launch_wide<true>(a, scr, path == 3) : launch_wide<false>(a, scr, path == 3);

@@ -7,6 +7,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace benes {
 
@@ -125,6 +126,13 @@ __device__ __forceinline__ void exchange(uint32_t (&col)[N], const uint32_t* m, 
   }
 }
 
+// A kernel's words and plans: the batch's words [batch, w, c] and its
+// plans' masks plan_stride words apart, or (kTable) a device table of 2 *
+// batch pointers, element b's words [w, c] at table[b] and its plan's masks
+// [stages, wp] at table[batch + b], each wherever it is stored.
+template <bool kTable>
+using Source = std::conditional_t<kTable, const uint32_t* const*, const uint32_t*>;
+
 struct Args {
   const uint32_t* x;
   const uint32_t* masks;
@@ -134,13 +142,33 @@ struct Args {
   unsigned long long* count;
   int64_t batch, w, c, wp, stages, w_net, plan_stride;
   cudaStream_t stream;
+  const uint32_t* const* table = nullptr;  // the table form's, in place of x and masks
 };
+
+// Element e0's words and its plan's masks (kTable: their entries of the table).
+template <bool kTable>
+Source<kTable> slice_words(const Args& a, int64_t e0) {
+  if constexpr (kTable) {
+    return a.table + e0;
+  } else {
+    return a.x + e0 * a.w * a.c;
+  }
+}
+
+template <bool kTable>
+Source<kTable> slice_masks(const Args& a, int64_t e0) {
+  if constexpr (kTable) {
+    return a.table + a.batch + e0;
+  } else {
+    return a.masks + e0 * a.plan_stride;
+  }
+}
 
 // Launches kernel(e0 slice args...) with `threads` threads a block over
 // ceil(c / chunks) blocks, once per 65535 batch elements; the slice's (b,
-// plan, count) come in through offset base pointers, so b restarts at 0 in
-// every slice.
-template <typename Kernel, typename... Tail>
+// input, plan, count) come in through offset base pointers, so b restarts at
+// 0 in every slice.
+template <bool kTable = false, typename Kernel, typename... Tail>
 cudaError_t launch_slices(Kernel kernel, const Args& a, int64_t chunks, int threads, size_t smem,
                           Tail... tail) {
   const int64_t blocks = (a.c + chunks - 1) / chunks;
@@ -154,7 +182,7 @@ cudaError_t launch_slices(Kernel kernel, const Args& a, int64_t chunks, int thre
     const int64_t n = a.batch - e0 < kMaxGridY ? a.batch - e0 : kMaxGridY;
     const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
     kernel<<<grid, static_cast<unsigned>(threads), smem, a.stream>>>(
-        a.x + e0 * a.w * a.c, a.masks + e0 * a.plan_stride, a.sched, a.key,
+        slice_words<kTable>(a, e0), slice_masks<kTable>(a, e0), a.sched, a.key,
         a.out + e0 * a.w * a.c, a.count + (a.count ? e0 : 0), a.w, a.c, tail...,
         static_cast<int>(a.stages), static_cast<int>(a.w_net), a.plan_stride);
     const cudaError_t err = cudaGetLastError();

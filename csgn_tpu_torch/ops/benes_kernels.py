@@ -4,7 +4,10 @@
     batch ``[B, W, C]`` (csrc/benes.cu; replaces
     csgn_tpu/ops/permute_benes.py `apply_benes_pallas`).
   * K9 `apply_benes_batch` — plan i on element i of ``[k, W, C]``
-    (csrc/benes.cu with a plan stride; replaces `apply_benes_batch_pallas`).
+    (csrc/benes.cu with a plan stride; replaces `apply_benes_batch_pallas`),
+    and `apply_benes_requests`, the same on k ``[W, C]`` tensors and k plans
+    read where they are stored, through a device table of their base
+    pointers (the register path's table form), into one ``[k, W, C]`` output.
   * K12 `apply_benes_decrypt` — K8 plus the decrypt count of the permuted
     output against the OUTPUT key (csrc/benes.cu count mode; replaces
     `apply_benes_decrypt_pallas`).
@@ -65,6 +68,7 @@ __all__ = [
     "apply_benes_plain",
     "apply_benes_batch",
     "apply_benes_batch_plain",
+    "apply_benes_requests",
     "apply_benes_decrypt",
     "apply_benes_decrypt_plain",
     "benes_path",
@@ -96,7 +100,7 @@ LANES_WORDS_PAD = 2048
 WIDE_TILE_WORDS_PAD = 32768
 RING_WORDS_PAD = 128
 _WIDE_GLOBAL_CHUNKS = 32
-_PATH_CODES = {"register": 0, "lanes": 1, "wide": 2, "global": 3, "ring": 4}
+_PATH_CODES = {"register": 0, "lanes": 1, "wide": 2, "global": 3, "ring": 4, "table": 5}
 _PATH_LAUNCHES = {"lanes": "benes_lanes", "wide": "benes_wide", "global": "benes_wide"}
 
 
@@ -223,6 +227,57 @@ def apply_benes_batch(words: torch.Tensor, stacked: pb.StackedPlans) -> torch.Te
         return apply_benes_batch_plain(words, stacked)
     stride = len(stacked.deltas) * stacked.words_pad
     return _benes_cuda("apply_benes_batch", words, stacked, stride)[0]
+
+
+def apply_benes_requests(words: list[torch.Tensor], plans: list[pb.BenesPlan]) -> torch.Tensor:
+    """Permute request i, a ``[W, C]`` tensor wherever it is stored, by plans[i]
+    into element i of one ``[k, W, C]`` output: K9 with no stack of its
+    inputs or of its plans.  The requests share one shape, dtype and device,
+    and each is contiguous; the plans share n.  On the card each plan's masks
+    stay where `permute_benes.table_operands` keeps them, and one table of
+    the requests' and masks' base pointers goes up by one non-blocking copy
+    from pinned memory (torch's caching host allocator reuses the block only
+    after the copy has landed), so nothing waits for the stream; it takes
+    networks of the register path alone (`benes_path` "register", n <=
+    2048).  Each launch counts under ``LAUNCHES["apply_benes_batch"]`` and
+    as ``apply_benes_batch.register`` and ``apply_benes_batch.table``.  On
+    the CPU the plain version runs request by request."""
+    if len(words) != len(plans):
+        raise ValueError(f"apply_benes_requests: {len(words)} requests for {len(plans)} plans")
+    _check_operands("apply_benes_requests", tuple(words))
+    if words[0].dim() != 2:
+        raise ValueError(f"apply_benes_requests: requests must be [W, C], "
+                         f"got {tuple(words[0].shape)}")
+    if any(t.shape != words[0].shape for t in words):
+        raise ValueError(f"apply_benes_requests: requests must share one shape, got "
+                         f"{sorted({tuple(t.shape) for t in words})}")
+    if words[0].device.type == "cpu":
+        return torch.stack([apply_benes_plain(t, p) for t, p in zip(words, plans)])
+    p0 = plans[0]
+    if benes_path(p0.words_pad) != "register":
+        raise ValueError(f"apply_benes_requests: the table form is the register path's; "
+                         f"a network of {p0.words_pad} words takes {benes_path(p0.words_pad)!r}")
+    if p0.deltas != network_deltas(p0.n_pad):
+        raise ValueError(f"apply_benes_requests: stage deltas {p0.deltas} are not the "
+                         f"{p0.n_pad}-bit network's")
+    name, k = "apply_benes_batch", len(words)
+    with op_metrics().span(f"launch.{name}"):
+        dev = words[0].device
+        masks, sched = pb.table_operands(plans, dev)
+        w, c = words[0].shape
+        out = torch.empty((k, w, c), dtype=torch.int32, device=dev)
+        if out.numel():
+            table = torch.tensor([t.data_ptr() for t in (*words, *masks)], dtype=torch.int64,
+                                 pin_memory=True).to(dev, non_blocking=True)
+            with torch.cuda.device(dev):
+                check(name, lib().csgn_benes(
+                    ptr(table), None, ptr(sched), None, ptr(out), None, None, k, w, c,
+                    p0.words_pad, len(p0.deltas), min(w, p0.words_pad), 0, _PATH_CODES["table"],
+                    stream_of(out)))
+            LAUNCHES[name] += grids(k)
+            op_metrics().count(f"{name}.register")
+            op_metrics().count(f"{name}.table")
+        return out
 
 
 def apply_benes_decrypt(words: torch.Tensor, plan: pb.BenesPlan, mask: torch.Tensor, *,

@@ -62,6 +62,7 @@ __all__ = [
     "permute",
     "permute_batched",
     "permute_batched_multi",
+    "permute_requests",
     "permute_decrypt",
 ]
 
@@ -182,6 +183,14 @@ def permute_batched_multi(words: torch.Tensor, stacked) -> torch.Tensor:
     masks are selected by the batch index — the key-rotation-fleet pattern."""
     _path("permute_batched_multi", words)
     return benes_kernels.apply_benes_batch(words, stacked)
+
+
+def permute_requests(words: list[torch.Tensor], plans) -> torch.Tensor:
+    """`permute_batched_multi` on k ``[W, C]`` requests and their k plans
+    read where they are stored (K9's table form, register path only), into
+    one ``[k, W, C]``."""
+    _path("permute_requests", words[0])
+    return benes_kernels.apply_benes_requests(words, plans)
 
 
 def permute_decrypt(words: torch.Tensor, plan, mask: torch.Tensor):

@@ -42,8 +42,10 @@ __all__ = [
     "BenesPlan",
     "StackedPlans",
     "build_plan",
+    "network_size",
     "stack_plans",
     "device_operands",
+    "table_operands",
     "apply_benes",
     "apply_benes_batch",
     "apply_benes_decrypt_plain",
@@ -163,10 +165,16 @@ def _payload_rows(n: int, n_pad: int, deltas: tuple[int, ...]) -> tuple[np.ndarr
     return pb, rows
 
 
+def network_size(n: int) -> int:
+    """n_pad, the bits of every plan's network on n: the least power of two
+    that holds n, and at least 32."""
+    return 1 << max(5, int(np.ceil(np.log2(max(n, 2)))))
+
+
 def build_plan(perm: np.ndarray, n: int) -> BenesPlan:
     """Route `perm` (gather form, length n) into a delta-swap plan."""
     perm = np.asarray(perm, dtype=np.int64)
-    n_pad = 1 << max(5, int(np.ceil(np.log2(max(n, 2)))))
+    n_pad = network_size(n)
     full = np.concatenate([perm, np.arange(n, n_pad)])  # identity on padding
     stages = _route(full)
     wp = n_pad // 32
@@ -235,8 +243,8 @@ def _plan_static(plan, w: int):
 def device_operands(plan, device) -> tuple[torch.Tensor, torch.Tensor]:
     """``(masks, schedule)`` of a `BenesPlan` or `StackedPlans` on `device`,
     copied once per device and cached on the plan.  Each copy (a cache
-    miss) counts under ``perm.plan_upload_bytes`` (`utils.metrics`), with
-    the bytes of both.
+    miss; and `table_operands`' schedule) counts under
+    ``perm.plan_upload_bytes`` (`utils.metrics`), with the bytes copied.
 
     masks: int32 view of the uint32 masks, ``[S, WP]`` or ``[k, S, WP]``.
     schedule: int32 ``[S, 2]`` of (delta, live rows), rows 0 for a stage
@@ -253,6 +261,28 @@ def device_operands(plan, device) -> tuple[torch.Tensor, torch.Tensor]:
         op_metrics().count("perm.plan_upload_bytes", bytes_moved=masks.nbytes + sched.nbytes)
         plan._device[key] = ops
     return ops
+
+
+def table_operands(plans: list[BenesPlan], device) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """What K9's table form reads of k same-(n, n_pad) plans on `device`:
+    each plan's masks ``[S, WP]`` where `device_operands` keeps them (copied
+    once per device and cached on the plan, so a fleet uploads no plan it
+    has run before), and one schedule for all of them with every stage on
+    (a stage whose masks are zero is a no-op), cached on the first plan.
+    It touches ``perm.plan_upload_bytes`` even where it copies nothing, so
+    a window of such calls reads 0 bytes rather than no count."""
+    p0 = plans[0]
+    if any(p.n_pad != p0.n_pad or p.n != p0.n for p in plans):
+        raise ValueError("plans must share n and n_pad")
+    op_metrics().count("perm.plan_upload_bytes", n=0)
+    key = str(torch.device(device))
+    masks = [(p._device.get(key) or device_operands(p, device))[0] for p in plans]
+    sched = p0._device.get(f"{key}/all_stages")
+    if sched is None:
+        sched = torch.tensor(list(zip(p0.deltas, p0.rows)), dtype=torch.int32).reshape(-1, 2)
+        sched = p0._device[f"{key}/all_stages"] = sched.to(device)
+        op_metrics().count("perm.plan_upload_bytes", bytes_moved=sched.nbytes)
+    return masks, sched
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,9 @@ Semantics:
   * While `utils.metrics` records spans, a submission is ``executor.submit``
     and a flush ``executor.flush``; each group under it is ``serve.<kind>``,
     over ``executor.stack``, the batched op, ``executor.readback`` and
-    ``executor.unpack`` (the requests' wrappers and their futures).
+    ``executor.unpack`` (the requests' wrappers and their futures).  A
+    ``perm`` group whose requests K9 reads where they are stored
+    (`_reads_in_place`) has no ``executor.stack``.
 
 Example::
 
@@ -52,6 +54,8 @@ from csgn_tpu_torch.models.netlist import (
     eval_homomorphic_batch,
     eval_plain_packed,
 )
+from csgn_tpu_torch.ops.benes_kernels import benes_path
+from csgn_tpu_torch.ops.permute_benes import network_size
 from csgn_tpu_torch.permutation import Permutation
 from csgn_tpu_torch.pipeline import default_budget_bytes
 from csgn_tpu_torch.rng import Key, fold_in
@@ -104,21 +108,35 @@ class _Failed:
         self.exc = exc
 
 
-def _stack(cts: list[Ciphertext]) -> CiphertextBatch:
-    """Stack same-shape ciphertexts with one copy when the tags allow.
+def _one_tag(cts: list[Ciphertext]) -> bool:
+    """Whether ciphertexts share one order tag: all canonical (fresh or
+    already-canonicalized; a pad needs a tag), or ONE tag object and pad
+    (e.g. sliced from the same batch)."""
+    first = cts[0]
+    return all(c.logical is first.logical and c.pad == first.pad for c in cts)
 
-    All-canonical (fresh or already-canonicalized) requests stack raw;
-    requests sharing ONE tag object (e.g. sliced from the same batch) keep
-    it shared; mixed tags fall back to `CiphertextBatch.stack`, which
-    canonicalizes each element (a gather per element — correct, not free).
+
+def _stack(cts: list[Ciphertext]) -> CiphertextBatch:
+    """Stack same-shape ciphertexts with one copy when they share one tag
+    (`_one_tag`), which the batch keeps; mixed tags fall back to
+    `CiphertextBatch.stack`, which canonicalizes each element (a gather per
+    element — correct, not free).
     """
     first = cts[0]
-    if all(c.logical is None for c in cts):
-        return CiphertextBatch(torch.stack([c.wt for c in cts]), first.ctx)
-    if all(c.logical is first.logical and c.pad == first.pad for c in cts):
+    if _one_tag(cts):
         return CiphertextBatch(torch.stack([c.wt for c in cts]), first.ctx, first.logical,
                                first.pad)
     return CiphertextBatch.stack(cts)
+
+
+def _reads_in_place(cts: list[Ciphertext]) -> bool:
+    """Whether a perm group's requests go to K9 where they are stored, with
+    no stack: they share one tag (`_one_tag`, so `_stack` would stack them
+    raw), each one's words are contiguous, and the network is the register
+    path's (n <= 2048; the lane-group and wide paths read one base
+    tensor)."""
+    return (_one_tag(cts) and all(c.wt.is_contiguous() for c in cts)
+            and benes_path(network_size(cts[0].ctx.n) // 32) == "register")
 
 
 class BatchExecutor:
@@ -287,7 +305,9 @@ class BatchExecutor:
 
     def submit_permute(self, ct: Ciphertext, perm: Permutation) -> ServeFuture:
         """Apply a per-request permutation; B requests run the batched
-        stacked-plan Beneš kernel (one launch for the whole fleet)."""
+        Beneš kernel (one launch for the whole fleet), which reads the
+        requests and their plans where they are stored where it can
+        (`_reads_in_place`), else their stacks."""
         with self._submitting():
             self._check_ct(ct, "permute")
             if perm.n != ct.ctx.n:
@@ -435,8 +455,18 @@ class BatchExecutor:
         return out
 
     def _run_perm(self, payloads: list[tuple]) -> Iterator[Ciphertext]:
-        (cts,) = self._stacked(payloads, 1)
-        out = cts.apply_permutations([perm for _, perm in payloads])
+        """One K9 launch for the group: on the requests where they are stored
+        where `_reads_in_place` allows (counted ``executor.perm.inplace``),
+        else on their stack (``executor.perm.stacked``)."""
+        cts = [ct for ct, _ in payloads]
+        perms = [perm for _, perm in payloads]
+        if _reads_in_place(cts):
+            op_metrics().count("executor.perm.inplace")
+            out = CiphertextBatch.permute_each(cts, perms)
+        else:
+            op_metrics().count("executor.perm.stacked")
+            (batch,) = self._stacked(payloads, 1)
+            out = batch.apply_permutations(perms)
         return (out[i] for i in range(len(payloads)))
 
     def __repr__(self) -> str:

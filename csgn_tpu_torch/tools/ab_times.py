@@ -1,6 +1,6 @@
 """Kernel times for comparing two trees of the port on one card, in turns.
 
-    PYTHONPATH=<tree> python3 csgn_tpu_torch/tools/ab_times.py {encrypt,benes,benes-wide,benes-lanes,muldec,rekey}
+    PYTHONPATH=<tree> python3 csgn_tpu_torch/tools/ab_times.py {encrypt,benes,benes-wide,benes-lanes,muldec,rekey,fleet}
 
 times the kernels of the csgn_tpu_torch package found first on the path
 (the tree's), through the public wrappers, and prints one JSON line.  Run it
@@ -40,7 +40,16 @@ after one untimed call (CUDA events), three runs a kernel:
     bit's readback syncs each op), three runs of 40 ops over four operand
     pairs, then one run with the program's spans on: the µs an op of
     ``key.apply_permutation`` and of ``key.permute_and_decrypt`` less its
-    ``key.readback``, and the window's ``key.upload.*`` counts.
+    ``key.readback``, and the window's ``key.upload.*`` counts;
+  * ``fleet``: K9 on the ``rotate-fleet`` cell's fleets, 64 requests of 2^16
+    chunks at Context(1247, 16), each request its own allocation and its
+    own plan: requests and plans read where they are stored
+    (`apply_benes_requests`, where the tree has it) in turns with K9 on
+    their stack and the plans' stack made beforehand (the kernel alone, no
+    stack copy); K8 over 2^24 chunks cycling four plans;
+    and the host wall ms of a whole fleet through
+    `BatchExecutor.submit_permute` and one ``flush()``, its stream drained
+    (three runs of 50 fleets over five stored fleets).
 
 It needs an NVIDIA GPU.
 """
@@ -251,17 +260,67 @@ def rekey_times(dev) -> dict:
     return out
 
 
+def fleet_times(dev) -> dict:
+    from csgn_tpu_torch import BatchExecutor
+
+    ctx = Context(1247, 16)
+    sets = [_words(ctx, 1 << 16, 64, dev) for _ in range(5)]
+    plans = [Permutation.random(ctx, rng.key(2600 + i)).benes_plan() for i in range(64)]
+    fleet = pb.stack_plans(plans)
+    stacks = [torch.stack(reqs) for reqs in sets]
+    table = getattr(benes_kernels, "apply_benes_requests", None)
+    fns = {"k9_stacked": (lambda x: benes_kernels.apply_benes_batch(x, fleet), stacks)}
+    if table is not None:
+        if not torch.equal(table(sets[0], plans), benes_kernels.apply_benes_batch(stacks[0], fleet)):
+            raise RuntimeError("K9's table form disagrees with K9 on the stack")
+        fns["k9_table"] = (lambda reqs: table(reqs, plans), sets)
+    out = {"64x2^16": {k: [] for k in fns}}
+    if table is None:
+        out["64x2^16"]["k9_table"] = "no table form in this tree"
+    for name in (*fns, *reversed(fns), *fns):       # in turns
+        fn, inputs = fns[name]
+        out["64x2^16"][name].append(run_ms(fn, inputs))
+    del stacks
+    plans = [Permutation.random(ctx, rng.key(900 + i)).benes_plan() for i in range(4)]
+    x = _words(ctx, 1 << 24, 1, dev)[0]
+    out["k8_2p24"] = [run_ms(lambda q: benes_kernels.apply_benes(x, q), plans)
+                      for _ in range(3)]
+    del x
+    cts = [[Ciphertext(w, ctx) for w in reqs] for reqs in sets]
+    readers = [Permutation.random(ctx, rng.key(2600 + i)) for i in range(64)]
+    ex = BatchExecutor(None)
+
+    def fleets(count):
+        for f in range(count):
+            futs = [ex.submit_permute(ct, readers[(j + f) % 64])
+                    for j, ct in enumerate(cts[f % 5])]
+            ex.flush()
+            for fut in futs:
+                fut.result()
+            torch.cuda.current_stream(dev).synchronize()
+
+    fleets(10)
+    out["fleet_ms"] = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fleets(50)
+        out["fleet_ms"].append(1e3 * (time.perf_counter() - t0) / 50)
+    out["routes"] = {k: v["calls"] for k, v in op_metrics().snapshot().items()
+                     if k.startswith("executor.perm.") or k.startswith("apply_benes_batch.")}
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("what", choices=("encrypt", "benes", "benes-wide", "benes-lanes",
-                                         "muldec", "rekey"))
+                                         "muldec", "rekey", "fleet"))
     parser.add_argument("--forced", default="", help="benes-lanes: comma-separated paths to "
                         "time in turns with the routed one")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     fns = {"encrypt": encrypt_times, "benes": benes_times, "benes-wide": benes_wide_times,
            "benes-lanes": lambda d: benes_lanes_times(d, [p for p in args.forced.split(",") if p]),
-           "muldec": muldec_times, "rekey": rekey_times}
+           "muldec": muldec_times, "rekey": rekey_times, "fleet": fleet_times}
     print(json.dumps({"package": csgn_tpu_torch.__file__, args.what: fns[args.what](dev)}))
 
 

@@ -27,6 +27,7 @@ import torch
 
 from csgn_tpu_torch import (BatchExecutor, Ciphertext, CiphertextBatch, Context, Permutation,
                             SecretKey, rng)
+from csgn_tpu_torch import serve
 from csgn_tpu_torch.layout import words_from_numpy, words_to_numpy
 from csgn_tpu_torch.ops import benes_kernels, dispatch, encrypt_kernels, kernels
 from csgn_tpu_torch.ops import core
@@ -340,23 +341,33 @@ def test_rotation_path_at_full_size(dev):
 
 
 
+def _fleet_store(dev, b=64, c=1 << 16):
+    """The ``rotate-fleet`` cell's fleet at Context(1247, 16): b stored
+    ciphertexts' words of c fresh chunks, their key's positions, and b
+    readers' permutations with their plans built."""
+    positions = key_positions(25, CTX.n, CTX.d)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    bits = torch.randint(0, 2, (b, c), device=dev, generator=gen)
+    store = fresh_chunks(bits, positions, CTX.n, gen).transpose(1, 2).contiguous()
+    perms = [host_rng(25, f"reader-{r}").permutation(CTX.n) for r in range(b)]
+    pis = [Permutation(p) for p in perms]
+    for pi in pis:
+        pi.benes_plan()
+    return positions, store, perms, pis
+
+
 @_path("fleet", ("apply_benes_batch",))
 def test_fleet_route_at_full_size(dev):
     """A key-rotation fleet at Context(1247, 16) through the public API, at
     the ``rotate-fleet`` cell's size: 64 stored ciphertexts of 65,536 fresh
     chunks, each re-keyed to its own reader by ``submit_permute`` on an
     executor that holds no key, and one ``flush()``: one K9 call on the
-    register path, one stacked plan uploaded, and every request's words and
-    its bit under its reader's key the reference's (portbench/reference/
-    fleet.py), one request at a time."""
-    b, c = 64, 1 << 16
-    positions = key_positions(25, CTX.n, CTX.d)
-    gen = torch.Generator(device=dev).manual_seed(25)
-    bits = torch.randint(0, 2, (b, c), device=dev, generator=gen)
-    store = fresh_chunks(bits, positions, CTX.n, gen).transpose(1, 2).contiguous()
-    del bits
-    perms = [host_rng(25, f"reader-{r}").permutation(CTX.n) for r in range(b)]
-    pis = [Permutation(p) for p in perms]
+    register path, reading the requests and their plans where they are
+    stored (its table form), each plan uploaded once and nothing when the
+    fleet comes again, and every request's words and its bit under its
+    reader's key the reference's (portbench/reference/fleet.py), one
+    request at a time."""
+    positions, store, perms, pis = _fleet_store(dev)
     plans = [pi.benes_plan() for pi in pis]
     ex = BatchExecutor(None)
     before = op_metrics().snapshot()
@@ -370,16 +381,44 @@ def test_fleet_route_at_full_size(dev):
         return after.get(name, {}).get(field, 0) - before.get(name, {}).get(field, 0)
 
     assert grew("apply_benes_batch.register") == 1 and grew("perm.plan_builds") == 0
-    stacked = pb.stack_plans(plans)
-    upload = stacked.masks.nbytes + 2 * 4 * len(stacked.deltas)
+    assert grew("apply_benes_batch.table") == grew("executor.perm.inplace") == 1
+    sched = 2 * 4 * len(plans[0].deltas)
+    upload = sum(p.masks.nbytes + sched for p in plans) + sched
     assert (grew("perm.plan_upload_bytes"), grew("perm.plan_upload_bytes", "bytes_moved")) \
-        == (1, upload) == (1, 64 * 5376 + 168)
+        == (65, upload) == (65, 64 * (5376 + 168) + 168)
+    again = [ex.submit_permute(Ciphertext(store[i], CTX), pi) for i, pi in enumerate(pis)]
+    ex.flush()
+    assert all(torch.equal(f.result().wt, o.wt) for f, o in zip(again, out))
+    after = op_metrics().snapshot()
+    assert grew("perm.plan_upload_bytes", "bytes_moved") == upload
     parities = set()
-    for i in range(b):
+    for i in range(len(pis)):
         assert out[i].is_canonical and out[i].wt.data_ptr() != store[i].data_ptr()
         assert fleet.check(out[i].wt, store[i], perms[i], positions, CTX.n) == (0, 0), i
         parities.add(fleet.parity(store[i], positions, CTX.n))
     assert parities == {0, 1}
+
+
+@pytest.mark.parametrize("route,stacks", [("inplace", 1), ("stacked", 2)])
+def test_fleet_flush_allocates_no_stack(dev, monkeypatch, route, stacks):
+    """The peak memory of a ``rotate-fleet`` flush over what it holds
+    before: the output and the plans' copies on the in-place route (1x the
+    fleet's words), a stack of the requests besides on the stacked route
+    (2x).  Not a path test: `chip_smoke.py` runs each wrapper's plain
+    version beside it, which allocates too."""
+    if route == "stacked":
+        monkeypatch.setattr(serve, "_reads_in_place", lambda cts: False)
+    _, store, _, pis = _fleet_store(dev)
+    ex = BatchExecutor(None)
+    futs = [ex.submit_permute(Ciphertext(store[i], CTX), pi) for i, pi in enumerate(pis)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ex.flush()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    assert all(f.done for f in futs)
+    assert stacks * store.nbytes <= peak <= stacks * store.nbytes + (8 << 20), (peak, store.nbytes)
 
 
 def _uploads():
@@ -642,6 +681,67 @@ def test_benes_k9_fleets_match_plain(dev, n, k, chunks):
     stacked = pb.stack_plans([pool[i] for i in rng.integers(0, 5, size=k)])
     got = benes_kernels.apply_benes_batch(x, stacked)
     assert torch.equal(got, benes_kernels.apply_benes_batch_plain(x, stacked))
+
+
+@pytest.mark.parametrize("n,k,chunks", [*((n, 3, 129) for n in (20, 50, 100, 200, 400, 700,
+                                                                  1247, 2048)),
+                                        (1247, 64, 1 << 16), (1247, 3, (1 << 16) + 37),
+                                        (20, 65537, 1)])
+def test_benes_k9_table_form_matches_stacked_and_plain(dev, n, k, chunks):
+    """K9's table form (`apply_benes_requests`) on k requests, each its own
+    allocation, listed in a drawn order other than the allocations', each
+    on one of five plans drawn per request: at every register-path width
+    over a ragged 129-column grid, on the ``rotate-fleet`` cell's 64 x 2^16
+    chunks, on 3 x (2^16 + 37) (a ragged last block) and on 65,537 requests
+    (two grids), bit-exact to K9 on their stack and to the plain batch;
+    counted as the table form."""
+    words = list(_perm_words(n, (k,), chunks, 1000 * k + n, dev)[2].unbind(0))
+    if k <= 64:
+        words = [w.clone() for w in words]      # separate allocations
+    rng = np.random.default_rng(n + k)
+    reqs = [words[i] for i in rng.permutation(k)]
+    pool = [Permutation(rng.permutation(n)).benes_plan() for _ in range(5)]
+    plans = [pool[i] for i in rng.integers(0, 5, size=k)]
+    before, table = dict(kernels.LAUNCHES), _count("apply_benes_batch.table")
+    got = benes_kernels.apply_benes_requests(reqs, plans)
+    assert kernels.LAUNCHES["apply_benes_batch"] == before["apply_benes_batch"] + -(-k // 65535)
+    assert _count("apply_benes_batch.table") == table + 1
+    x, stacked = torch.stack(reqs), pb.stack_plans(plans)
+    assert torch.equal(got, benes_kernels.apply_benes_batch(x, stacked))
+    assert torch.equal(got, benes_kernels.apply_benes_batch_plain(x, stacked))
+
+
+def _count(name):
+    return op_metrics().snapshot().get(name, {}).get("calls", 0)
+
+
+def test_benes_k9_table_form_queues_behind_k1_and_refuses_wide_networks(dev):
+    """With 4096² K1s in flight, the table form's launch (its plans already
+    on the card) waits for nothing: the pointer table goes up without a
+    stream wait (torch's sync debug mode raises on one).  A network past the
+    register path (n = 4095) is refused, not rerouted."""
+    a, b = _words(CTX, 4096, 3, dev), _words(CTX, 4096, 4, dev)
+    reqs = [_perm_words(CTX.n, (), 4099, 50 + i, dev)[2] for i in range(5)]
+    rng = np.random.default_rng(5)
+    plans = [Permutation(rng.permutation(CTX.n)).benes_plan() for _ in range(5)]
+    benes_kernels.apply_benes_requests(reqs, plans)    # the plans' copies, the pinned block
+    torch.cuda.synchronize()
+    for _ in range(4):
+        kernels.mul_chunks(a, b)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = benes_kernels.apply_benes_requests(reqs, plans)
+        drained = torch.cuda.current_stream().query()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert not drained
+    stacked = pb.stack_plans(plans)
+    assert torch.equal(got, benes_kernels.apply_benes_batch(torch.stack(reqs), stacked))
+    _, rng4095, x = _perm_words(4095, (), 33, 4, dev)
+    wide = [Permutation(rng4095.permutation(4095)).benes_plan()]
+    with pytest.raises(ValueError, match="register path"):
+        benes_kernels.apply_benes_requests([x], wide)
 
 
 @pytest.mark.parametrize("batch,t1,t2", [(1, 3, 5), (4, 1, 1), (5, 13, 7), (3, 128, 130),
@@ -976,11 +1076,11 @@ def test_count_pass_past_the_grid_limit_with_several_blocks(dev):
 
 # Kernel families by a part of their mangled names, with their number of
 # instantiations: the Beneš register path (WP = 1, 2, ..., 64, with and
-# without the count), lane-group path (the tile form's ten, the ring form's
+# without the count, and K9's table form without it), lane-group path (the tile form's ten, the ring form's
 # two) and wide path, the fill, the Philox
 # tile (16- and 4-byte row stores), K14, the count pass, and the product
 # kernels: aligned, and unaligned or b-streamed, each 2-D and batched.
-KERNEL_FAMILIES = [("benes_register_kernel", 14), ("benes_lanes_kernel", 12),
+KERNEL_FAMILIES = [("benes_register_kernel", 21), ("benes_lanes_kernel", 12),
                    ("benes_wide_kernel", 6), ("fill_kernel", 1), ("philox_tile_kernel", 2),
                    ("JaxThreefry", 1), ("match_count_kernel", 1), ("mul_kernelI", 2),
                    ("mul_ragged_kernelI", 4)]

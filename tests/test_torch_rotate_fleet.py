@@ -23,6 +23,7 @@ import torch
 import csgn_tpu as J
 from csgn_tpu.ops import core as jcore
 import csgn_tpu_torch as T
+from csgn_tpu_torch import serve
 from csgn_tpu_torch.layout import words_to_numpy
 from csgn_tpu_torch.ops import dispatch
 from csgn_tpu_torch.ops import permute_benes as pb
@@ -79,28 +80,44 @@ def _calls(rec, name, field="calls"):
     return rec.snapshot().get(name, {}).get(field, 0)
 
 
+def _stacked_route(mp):
+    """Every perm group through the stack, as if no group could be read in
+    place."""
+    mp.setattr(serve, "_reads_in_place", lambda cts: False)
+
+
+@pytest.mark.parametrize("route", ["inplace", "stacked"])
 @pytest.mark.parametrize("b", [3, 64])
 @pytest.mark.parametrize("n,d", [(1247, 16), (100, 8)], ids=["1247x16", "100x8"])
-def test_fleet_route_matches_the_reference_and_jax(rec, n, d, b):
-    """One flush of B requests of ragged chunk counts, each under its own
-    permutation: one group a chunk count; every request's words are the
-    reference's rotation and the JAX executor's, and decrypt under the
-    reader's rotated key to Dec_k of the stored ciphertext."""
+def test_fleet_route_matches_the_reference_and_jax(rec, monkeypatch, n, d, b, route):
+    """One flush of B requests of ragged chunk counts, each a tensor of its
+    own under its own permutation, and the first ciphertext submitted once
+    more under another reader's: one group a chunk count, on each of the
+    executor's two routes; every request's words are the reference's
+    rotation and the JAX executor's, and decrypt under the reader's rotated
+    key to Dec_k of the stored ciphertext."""
+    if route == "stacked":
+        _stacked_route(monkeypatch)
     counts = np.random.default_rng(b + n).choice([1, 7, 33], size=b).tolist()
     counts[:3] = [1, 7, 33]
     positions, words = _store(counts, n, d, SEED + n)
     perms = _perms(b, n)
     ctx, jctx = T.Context(n, d), J.Context(n, d)
+    cts = [T.Ciphertext(w, ctx) for w in words]
+    cts.append(cts[0])
+    counts, words, perms = counts + counts[:1], words + words[:1], perms + perms[1:2]
     ex, jex = T.BatchExecutor(None), J.BatchExecutor(None)
-    futs = [ex.submit_permute(T.Ciphertext(w, ctx), T.Permutation(p))
-            for w, p in zip(words, perms)]
+    futs = [ex.submit_permute(ct, T.Permutation(p)) for ct, p in zip(cts, perms)]
     jfuts = [jex.submit_permute(J.Ciphertext(jnp.asarray(words_to_numpy(w)), jctx),
                                 J.Permutation(p)) for w, p in zip(words, perms)]
-    assert ex.pending() == b and not any(f.done for f in futs)
+    assert ex.pending() == b + 1 and not any(f.done for f in futs)
     ex.flush()
     assert all(f.done for f in futs)
     assert ex.stats["group_dispatches"] == 3 and ex.stats["flushes"] == 1
     assert _calls(rec, "batch.permute_multi") == 3
+    other = "stacked" if route == "inplace" else "inplace"
+    assert (_calls(rec, f"executor.perm.{route}"), _calls(rec, f"executor.perm.{other}")) \
+        == (3, 0)
     out = [f.result() for f in futs]
     parities = set()
     for o, jf, w, p in zip(out, jfuts, words, perms):
@@ -110,12 +127,66 @@ def test_fleet_route_matches_the_reference_and_jax(rec, n, d, b):
         parities.add(fleet.parity(w, positions, n))
     if b == 64:
         assert parities == {0, 1}
+    assert not torch.equal(out[0].wt, out[-1].wt)  # one ciphertext, two readers
     # the reference's fleet form on each group of one chunk count
     for t in set(counts):
         idx = [i for i, c in enumerate(counts) if c == t]
         got = torch.stack([out[i].wt for i in idx])
         assert torch.equal(got, fleet.rotate(torch.stack([words[i] for i in idx]),
                                              [perms[i] for i in idx]))
+
+
+def _tagged(words, order, pad):
+    """Each of `words` ([W, t] canonical) as a ciphertext in the physical
+    chunk order `order` with `pad` zero chunks after it, all under ONE tag
+    object."""
+    w = words[0].shape[0]
+    tag = torch.cat([torch.as_tensor(order, dtype=torch.int32),
+                     torch.full((pad,), -1, dtype=torch.int32)])
+    return [torch.cat([x[:, order], torch.zeros((w, pad), dtype=torch.int32)], 1)
+            for x in words], tag
+
+
+@pytest.mark.parametrize("case,route", [("canonical", "inplace"), ("shared_tag", "inplace"),
+                                        ("mixed_tags", "stacked"),
+                                        ("non_contiguous", "stacked"), ("wide", "stacked")])
+def test_perm_route_choice_and_its_counters(rec, case, route):
+    """A perm group goes to K9 where its requests are stored when `_stack`
+    would stack them raw (all canonical, or one tag object and pad) and
+    each is contiguous, on the register path (n <= 2048); mixed tags, a
+    non-contiguous request and a network past the register path (n = 4095)
+    take the stack.  Each group counts once under its route, and every
+    request's canonical words are the reference's rotation, its tag kept
+    on the in-place route."""
+    n, d, t, b = (4095, 16, 9, 3) if case == "wide" else (1247, 16, 9, 4)
+    _, words = _store([t] * b, n, d, SEED + b)
+    perms = _perms(b, n)
+    ctx = T.Context(n, d)
+    order = np.random.default_rng(t).permutation(t)
+    if case == "canonical" or case == "wide":
+        cts = [T.Ciphertext(w, ctx) for w in words]
+    elif case == "shared_tag":
+        physical, tag = _tagged(words, order, 2)
+        cts = [T.Ciphertext(x, ctx, tag, 2) for x in physical]
+    elif case == "mixed_tags":
+        physical, tag = _tagged(words[:1], order, 0)
+        cts = [T.Ciphertext(physical[0], ctx, tag)] + [T.Ciphertext(w, ctx) for w in words[1:]]
+    else:  # one request's words a strided view of the same values
+        cts = [T.Ciphertext(w, ctx) for w in words]
+        wide = torch.zeros((ctx.words32, 2 * t), dtype=torch.int32)
+        wide[:, ::2] = words[1]
+        object.__setattr__(cts[1], "wt", wide[:, ::2])
+        assert not cts[1].wt.is_contiguous()
+    ex = T.BatchExecutor(None)
+    futs = [ex.submit_permute(ct, T.Permutation(p)) for ct, p in zip(cts, perms)]
+    ex.flush()
+    other = "stacked" if route == "inplace" else "inplace"
+    assert (_calls(rec, f"executor.perm.{route}"), _calls(rec, f"executor.perm.{other}")) \
+        == (1, 0)
+    for fut, ct, w, p in zip(futs, cts, words, perms):
+        got = fut.result()
+        assert got.logical is (ct.logical if route == "inplace" else None)
+        assert torch.equal(got.canonical().wt, rekey.rotate(w, p))
 
 
 @pytest.mark.parametrize("n,d", [(1247, 16), (100, 8)], ids=["1247x16", "100x8"])
@@ -203,16 +274,18 @@ def test_cell_is_correct_on_the_program(rec):
     bench = harness.manifest()
     assert {m["name"] for m in harness.cell_metrics(bench, CELL, True)} == {
         "idle.bulk", "kernel.rekey_roofline", "kernel.benes_batch_roofline",
-        "perm.stack_plans_us.fleet", "perm.plan_upload_kb.fleet"}
+        "perm.stack_plans_us.fleet", "perm.plan_upload_kb.fleet", "perm.inplace_share.fleet"}
     assert {m["name"] for m in harness.cell_metrics(bench, CELL, False)} == {
         "chunk_ops_per_s", "setup_s"}
     out = _cell(trace=True)
     assert out["correct"] and out["attempted"] > 0 and out["attempted"] % 4 == 0, out
     assert all(c["value"] == 0 for c in out["checks"].values())
-    assert set(out["metrics"]) == {"perm.stack_plans_us.fleet", "perm.plan_upload_kb.fleet"}
-    plan = T.Permutation(_perms(1, 1247)[0]).benes_plan()
-    stacked = 4 * plan.masks.nbytes + 2 * 4 * len(plan.deltas)
-    assert out["metrics"]["perm.plan_upload_kb.fleet"]["value"] == pytest.approx(stacked / 1e3)
+    assert set(out["metrics"]) == {"perm.stack_plans_us.fleet", "perm.plan_upload_kb.fleet",
+                                   "perm.inplace_share.fleet"}
+    assert out["metrics"]["perm.inplace_share.fleet"]["value"] == 100
+    # the in-place route reads each plan where the warm-up left it: nothing
+    # is uploaded in the window
+    assert out["metrics"]["perm.plan_upload_kb.fleet"]["value"] == 0
     assert out["metrics"]["perm.stack_plans_us.fleet"]["value"] > 0
     assert not rec.enabled
     # untraced, the recorder stays off and empty
@@ -251,22 +324,22 @@ def test_cell_counts_the_fleets_work(rec):
 
 
 def _swap_plan(mp):
-    """Request 1 of each fleet rotated with request 0's plan."""
-    orig = pb.stack_plans
-
-    def broken(plans):
-        return orig([plans[0], plans[0], *plans[2:]])
-    mp.setattr(pb, "stack_plans", broken)
+    """Request 1 of each fleet rotated with request 0's plan, on either
+    route."""
+    stack, requests = pb.stack_plans, dispatch.permute_requests
+    mp.setattr(pb, "stack_plans", lambda plans: stack([plans[0], plans[0], *plans[2:]]))
+    mp.setattr(dispatch, "permute_requests",
+               lambda words, plans: requests(words, [plans[0], plans[0], *plans[2:]]))
 
 
 def _flip_word(mp):
-    orig = dispatch.permute_batched_multi
-
-    def broken(words, stacked):
-        out = orig(words, stacked).clone()
-        out[-1, 0, -1] ^= 1 << 4
-        return out
-    mp.setattr(dispatch, "permute_batched_multi", broken)
+    """One bit of each fleet's last request flipped, on either route."""
+    for name in ("permute_batched_multi", "permute_requests"):
+        def broken(words, stacked, orig=getattr(dispatch, name)):
+            out = orig(words, stacked).clone()
+            out[-1, 0, -1] ^= 1 << 4
+            return out
+        mp.setattr(dispatch, name, broken)
 
 
 @pytest.mark.parametrize("fault", [_swap_plan, _flip_word])
@@ -276,17 +349,23 @@ def test_cell_catches_a_fault_in_the_timed_path(rec, monkeypatch, fault):
     assert not out["correct"] and out["checks"]["rotated_words_wrong"]["value"] > 0
 
 
-def _fleet(b=3, n=1247, d=16, chunks=5):
+def _fleet(b=3, n=1247, d=16, chunks=5, pis=None):
     positions, words = _store([chunks] * b, n, d, SEED)
     ctx = T.Context(n, d)
     ex = T.BatchExecutor(None)
-    pis = [T.Permutation(p) for p in _perms(b, n)]
+    pis = pis or [T.Permutation(p) for p in _perms(b, n)]
     futs = [ex.submit_permute(T.Ciphertext(w, ctx), p) for w, p in zip(words, pis)]
     ex.flush()
     return [f.result() for f in futs], pis
 
 
-def test_stack_span_only_while_recording(rec):
+@pytest.mark.parametrize("route", ["inplace", "stacked"])
+def test_stack_span_only_while_recording(rec, monkeypatch, route):
+    """The plans' stack is one span under the group's, before the op; the
+    requests' stack (``executor.stack``) comes first on the stacked route
+    and is absent on the in-place one."""
+    if route == "stacked":
+        _stacked_route(monkeypatch)
     _fleet()
     assert rec.spans() == []
     with rec.recording():
@@ -296,16 +375,21 @@ def test_stack_span_only_while_recording(rec):
     assert names.count("perm.stack_plans") == 1
     stack = spans[names.index("perm.stack_plans")]
     assert spans[stack.parent].name == "serve.perm"
-    assert names.index("executor.stack") < names.index("perm.stack_plans") \
-        < names.index("batch.permute_multi")
+    assert names.index("perm.stack_plans") < names.index("batch.permute_multi")
+    if route == "stacked":
+        assert names.index("executor.stack") < names.index("perm.stack_plans")
+    else:
+        assert "executor.stack" not in names
     assert stack.end >= stack.start
     assert not rec.enabled
 
 
 def test_plan_upload_counts_cache_misses_only(rec):
     """One count a copy of a plan's or a stack's operands to a device, with
-    their bytes: a plan reused uploads nothing; a fleet stacks, and so
-    uploads, its plans anew on every call."""
+    their bytes: a plan reused uploads nothing; the executor's in-place
+    route uploads each plan of a fleet once (and one schedule with every
+    stage on, for its first plan), and nothing when the fleet comes again;
+    a stacked batch stacks, and so uploads, its plans anew on every call."""
     p = T.Permutation(_perms(1, 1247)[0])
     plan = p.benes_plan()
     one = plan.masks.nbytes + 2 * 4 * len(plan.deltas)
@@ -318,14 +402,20 @@ def test_plan_upload_counts_cache_misses_only(rec):
             _calls(rec, "perm.plan_upload_bytes", "bytes_moved")) == (1, one)
     rec.reset()
     _, pis = _fleet(b=3)
-    stacked = 3 * plan.masks.nbytes + 2 * 4 * len(plan.deltas)
+    sched = 2 * 4 * len(plan.deltas)
+    fleet = (4, 3 * one + sched)
     assert (_calls(rec, "perm.plan_upload_bytes"),
-            _calls(rec, "perm.plan_upload_bytes", "bytes_moved")) == (1, stacked)
+            _calls(rec, "perm.plan_upload_bytes", "bytes_moved")) == fleet
+    _fleet(b=3, pis=pis)
+    assert (_calls(rec, "perm.plan_upload_bytes"),
+            _calls(rec, "perm.plan_upload_bytes", "bytes_moved")) == fleet
+    stacked = 3 * plan.masks.nbytes + sched
     batch = T.CiphertextBatch(torch.stack(_store([5] * 3, 1247, 16, SEED)[1]), T.Context(1247, 16))
     batch.apply_permutations(pis)
     batch.apply_permutations(pis)
     assert (_calls(rec, "perm.plan_upload_bytes"),
-            _calls(rec, "perm.plan_upload_bytes", "bytes_moved")) == (3, 3 * stacked)
+            _calls(rec, "perm.plan_upload_bytes", "bytes_moved")) \
+        == (fleet[0] + 2, fleet[1] + 2 * stacked)
     assert _calls(rec, "perm.plan_builds") == 3  # the fleet's plans, once each
 
 
@@ -387,3 +477,18 @@ def test_plan_upload_reader_reads_the_counter_over_the_fleets(rec):
     assert read(_run(1.0, fleets=2)) == pytest.approx(344.232)
     assert read(_run(1.0, fleets=4)) == pytest.approx(172.116)
     assert read(_run(1.0, fleets=0)) is None
+
+
+def test_inplace_share_reader_reads_the_route_counters(rec):
+    """The in-place groups' share of the window's perm groups; None in a
+    program without either counter."""
+    read = harness.load("metrics", "perm.inplace_share.fleet").read
+    assert read(_run(1.0, fleets=2)) is None
+    for _ in range(4):
+        rec.count("executor.perm.inplace")
+    assert read(_run(1.0, fleets=4)) == 100
+    rec.count("executor.perm.stacked")
+    assert read(_run(1.0, fleets=5)) == pytest.approx(80)
+    rec.reset()
+    rec.count("executor.perm.stacked")
+    assert read(_run(1.0, fleets=1)) == 0
